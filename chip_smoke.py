@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of eCP-FS (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--n-items N] [--l2-items N] [--only kernels]
+    python3 chip_smoke.py [--n-items N] [--l2-items N]
 
 Phases, none of whose failures is caught:
 
@@ -18,6 +18,8 @@ Phases, none of whose failures is caught:
    search through make_kernel_scorer().  Launch counters are zeroed just
    before and read just after.  Asserts bit-identity with the host fp
    engine, launch counts, and prints recall@100 against brute force.
+   Then holds both kernels against their plain versions at the largest
+   shapes the built index gives them (its largest leaves).
 4. l2: the same steps at a smaller collection with metric l2.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
@@ -239,6 +241,7 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     import torch
     from repro_torch.core import build_index, convert, make_kernel_scorer, open_index
     from repro_torch.configs.ecpfs_paper import build_cfg
+    from repro_torch.core.layout import derive_shape
     from repro_torch.kernels.distance_topk import ops
 
     out = {}
@@ -246,9 +249,13 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     ops.reset_launches()
     # ---------------- the main path, through the user's entry points
     t0 = time.perf_counter()
-    build_index(data, str(fs), build_cfg(cfg))
+    st = build_index(data, str(fs), build_cfg(cfg))
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
+    n_leaves = derive_shape(len(data), cfg.cluster_cap, cfg.levels)[2][-1]
+    largest = max(st.node_rows([(cfg.levels, j) for j in range(n_leaves)]))
+    log(f"[{tag}] built in {out['build_s']:.3f} s: {n_leaves} leaves, largest {largest} rows "
+        "(the blob gives every slot the largest leaf's stride)")
     t0 = time.perf_counter()
     convert(str(fs), blob, quant="int8")
     out["convert_s"] = time.perf_counter() - t0
@@ -310,6 +317,7 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     out["leaves"] = len(bst._n_rows[-1])
     out["largest_leaf"] = int(max(bst._n_rows[-1]))
     out["blob_bytes"] = blob.stat().st_size
+    out["fstore_bytes"] = sum(p.stat().st_size for p in fs.rglob("*") if p.is_file())
     res[tag] = out
     log(f"[{tag}] " + json.dumps(out))
     return {"blob": blob, "store": bst}
@@ -341,12 +349,36 @@ def grouped_on_index(bst, Q, res) -> None:
     log(f"[main] grouped_distance_topk on the index's 128 largest leaves (N={N}): agree, max abs err {err:.3g}")
 
 
+def scorer_on_index(bst, Q, res) -> None:
+    """distance_topk against its plain version at the largest shape the leaf
+    scorer gives it on the built index: the largest leaf's full-precision
+    rows, zero-padded to the scorer's bucket, full selection."""
+    import torch
+    from repro_torch.kernels.distance_topk import ops, ref
+
+    L = len(bst._n_rows) - 1
+    emb, _ = bst.get_node(L, int(np.argmax(bst._n_rows[L])))
+    n = emb.shape[0]
+    n_pad = -(-n // 512) * 512  # make_kernel_scorer's default bucket
+    block = torch.zeros((n_pad, D), dtype=torch.float32)
+    block[:n] = torch.from_numpy(np.asarray(emb, np.float32))
+    block, qv = block.cuda(), torch.from_numpy(Q[:1]).cuda()
+    err = 0.0
+    for metric in ("l2", "ip", "cosine"):
+        dk, ik = ops.distance_topk(qv, block, n_pad, metric)
+        dp, ip = ref.distance_topk_ref(qv, block, n_pad, metric)
+        err = max(err, compare_topk(f"distance_topk on the index's largest leaf N_pad={n_pad} {metric}",
+                                    dk, ik, dp, ip))
+    res["topk_err"] = max(res["topk_err"], err)
+    log(f"[main] distance_topk on the index's largest leaf ({n} rows, N_pad={n_pad}, k=N_pad): "
+        f"l2/ip/cosine agree, max abs err {err:.3g}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-items", type=int, default=200_000)
     ap.add_argument("--l2-items", type=int, default=50_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["kernels"], default=None)
     args = ap.parse_args()
 
     import torch
@@ -364,48 +396,48 @@ def main() -> int:
     t_all = time.time()
     phase_kernels(res)
     log(f"[kernels] phase done at {time.time() - t_all:.1f} s")
-    if args.only != "kernels":
-        from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, ecpfs_paper_full
-        from repro_torch.data.synthetic import clustered_vectors
+    from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, ecpfs_paper_full
+    from repro_torch.data.synthetic import clustered_vectors
 
-        (ROOT / "build").mkdir(exist_ok=True)
-        work = Path(tempfile.mkdtemp(prefix="smoke_", dir=ROOT / "build"))
-        try:
-            cfg = ecpfs_paper_full()
-            if args.n_items != cfg.n_items:
-                log(f"reduced: n_items {cfg.n_items} -> {args.n_items} (depth of the collection; "
-                    "widths, dtype, metric, cluster_cap, L, b, k and batch as the paper's)")
-            cfg = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.n_items})
-            t0 = time.time()
-            x, _ = clustered_vectors(args.seed, n=cfg.n_items + cfg.serve_batch, dim=cfg.dim)
-            data, Q = x[: cfg.n_items], x[cfg.n_items :]
-            log(f"[main] data {data.shape} in {time.time() - t0:.1f} s")
-            built = run_path("main", work, data, Q, cfg, res, scorer_rows=32)
-            grouped_on_index(built["store"], Q, res)
-            assert res["main"]["bit_identical"], "quantized search differs from the fp engine"
-            log(f"[main] phase done at {time.time() - t_all:.1f} s")
-            shutil.rmtree(work / "main_fs")
-            (work / "main.blob").unlink()
-            cfg2 = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.l2_items, "metric": "l2"})
-            x, _ = clustered_vectors(args.seed + 1, n=cfg2.n_items + cfg2.serve_batch, dim=cfg2.dim)
-            run_path("l2", work, x[: cfg2.n_items], x[cfg2.n_items :], cfg2, res, scorer_rows=16)
-            assert res["l2"]["bit_identical"], "l2: quantized search differs from the fp engine"
-            log(f"[l2] phase done at {time.time() - t_all:.1f} s")
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-    main_launches = res.get("main", {}).get("launches", {})
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="smoke_", dir=ROOT / "build"))
+    try:
+        cfg = ecpfs_paper_full()
+        if args.n_items != cfg.n_items:
+            log(f"reduced: n_items {cfg.n_items} -> {args.n_items} (depth of the collection; "
+                "widths, dtype, metric, cluster_cap, L, b, k and batch as the paper's)")
+        cfg = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.n_items})
+        t0 = time.time()
+        x, _ = clustered_vectors(args.seed, n=cfg.n_items + cfg.serve_batch, dim=cfg.dim)
+        data, Q = x[: cfg.n_items], x[cfg.n_items :]
+        log(f"[main] data {data.shape} in {time.time() - t0:.1f} s")
+        built = run_path("main", work, data, Q, cfg, res, scorer_rows=32)
+        grouped_on_index(built["store"], Q, res)
+        scorer_on_index(built["store"], Q, res)
+        assert res["main"]["bit_identical"], "quantized search differs from the fp engine"
+        log(f"[main] phase done at {time.time() - t_all:.1f} s")
+        shutil.rmtree(work / "main_fs")
+        (work / "main.blob").unlink()
+        cfg2 = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.l2_items, "metric": "l2"})
+        x, _ = clustered_vectors(args.seed + 1, n=cfg2.n_items + cfg2.serve_batch, dim=cfg2.dim)
+        run_path("l2", work, x[: cfg2.n_items], x[cfg2.n_items :], cfg2, res, scorer_rows=16)
+        assert res["l2"]["bit_identical"], "l2: quantized search differs from the fp engine"
+        log(f"[l2] phase done at {time.time() - t_all:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    main_launches = res["main"]["launches"]
     g, t = res["grouped"], res["topk"]
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/grouped.py:88",
-         "launches": main_launches.get("grouped_distance_topk", 0),
+         "launches": main_launches["grouped_distance_topk"],
          "max_abs_err": res["grouped_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
          "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": g["library_ms"]},
         {"name": "distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
-         "launches": main_launches.get("distance_topk", 0),
+         "launches": main_launches["distance_topk"],
          "max_abs_err": res["topk_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]},
     ]

@@ -3,9 +3,11 @@
 Dispatch goes by the device of the inputs: tensors on the CPU take the
 plain PyTorch version (``ref.py``), tensors on a CUDA device launch the
 hand-written Hopper kernel (``csrc/*.cu``) or raise — there is no switch
-that sends CUDA tensors to the plain version.  ``launches`` counts kernel
-launches per op (plain integers, bumped only where a kernel launches);
-``reset_launches()`` zeroes them.
+that sends CUDA tensors to the plain version.  ``launches`` counts, per op,
+the wrapper calls that launched their kernel (plain integers, bumped only
+there); ``reset_launches()`` zeroes them.  A call is one count although
+``distance_topk``'s full-selection path (k >= N) runs two CUDA kernels, the
+distances and then the per-row sort.
 """
 from __future__ import annotations
 
