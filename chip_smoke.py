@@ -7,7 +7,7 @@ Phases, none of whose failures is caught:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when ``torch.cuda.is_available()`` is false.
-2. kernels: builds both CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+2. kernels: builds the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a) and holds each against its plain PyTorch version on the card at
    the main path's shapes; times kernel, plain version, a library yardstick
    (timed here only, never called by the port) and the bound.
@@ -21,6 +21,21 @@ Phases, none of whose failures is caught:
    Then holds both kernels against their plain versions at the largest
    shapes the built index gives them (its largest leaves).
 4. l2: the same steps at a smaller collection with metric l2.
+5. flash: holds the flash-attention kernel against its plain version on the
+   card, by element and by row (the six cases of tests/test_kernels.py,
+   every head width and logits of 30, in float32 and bf16; batch rows with
+   kv_len = 0; the prefill's heads in bf16 at S=4096, and at S=32768 three
+   blocks of rows of the prefill's own call) and times it at S=4096 and
+   S=32768.  Then plants each of FAULTS in a copy of the kernel's source
+   (built alongside the real sources, in a temporary directory) and
+   asserts that these checks see it.
+6. lm: phi4-mini-3.8b at full width and depth (``configs/lm_archs.py``),
+   random weights from a seeded generator on the card: prefill of
+   ``prefill_32k``'s 32768 tokens at batch 1 with ``attn_impl="flash"``
+   (32 kernel launches), 16 ``decode_step`` tokens, then the same tokens
+   through the chunked plain-torch attention; asserts that the two agree at
+   every step (relative L2 error of the logits, and the argmax).  The same
+   run with each planted fault prints how far its logits move.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Distances agree within 1e-4 relative:
@@ -30,12 +45,15 @@ within that tolerance of each other.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +65,50 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"float32": 67e12, "float16": 989e12, "bfloat16": 989e12, "int8": 1979e12}
 RTOL = 1e-4
 D = 1152
+# flash attention: the kernel against its plain version, whose p is float32
+# as the TPU kernel's.  Both kernels keep p in float32 (the bf16 one feeds
+# it to the tensor cores as two bf16 parts), so one tolerance holds both
+# dtypes.  By element |o - p| <= FLASH_TOL * max(1, |p|): the reference
+# holds its own kernel at 2e-5, the card sums in another order.  By row
+# |o - p|_2 <= FLASH_ROW_TOL * |p|_2: a late row's values are ~sqrt(e /
+# keys), ~0.01 at 32768 keys, far below the elementwise bound, and one key
+# more or less moves such a row by ~1/sqrt(keys / e), 9e-3 relative.
+FLASH_TOL = 1e-4
+# A row's error grows about in proportion to its keys, as an accumulation
+# that truncates (the tensor cores' float32 adder) would make it: 1.4e-5 at
+# 4096, 9.3e-5 at 32768 measured on the H100; the planted faults give
+# 2.9e-2 and more in every block checked.
+FLASH_ROW_TOL = 1e-3
+# faults planted in a copy of csrc/flash_attention.cu (the tensor-core
+# kernel, which the prefill runs): the checks above must see each
+FAULTS = {
+    "causal_off_by_one": ("kj <= qi[row] + off);", "kj <= qi[row] + off + 1);"),
+    "scale_x1.01": ("s[n][u] * p.scale", "s[n][u] * (p.scale * 1.01f)"),
+}
+FLASH_CASES = [  # tests/test_kernels.py:146-153
+    (2, 4, 2, 128, 128, 64, True, None),
+    (2, 4, 4, 128, 128, 64, False, None),
+    (1, 8, 2, 64, 256, 32, True, None),      # chunked prefill
+    (2, 4, 2, 1, 192, 64, True, (100, 192)),  # ragged decode
+    (2, 2, 1, 100, 100, 64, True, None),      # non-divisible seq
+    (1, 2, 2, 256, 256, 128, True, None),     # d = 128
+]
+# lm: flash prefill + decode against the chunked plain-torch attention, by
+# the relative L2 error of the logits at every step.  In bf16 chunked
+# rounds p / sum to bf16 for its p v product, where the kernel keeps p in
+# float32, and 32 layers carry the difference through the residual stream.
+# Readings on the H100 at full depth: 1.82-2.13e-2; with the kernel's
+# causal mask off by one 0.150-0.158, with its scale off by 1% 2.3-2.9e-2
+# (inside the limit: the kernel checks above see that fault, this one
+# does not).
+LOGIT_REL_TOL = 3e-2
+# The argmax may differ only between logits at most this far apart in the
+# chunked run.  The logits are bf16, 1/32 apart at the top (values 4 to 8),
+# so this admits three steps; random weights leave such near-ties.
+# Readings on the H100: one flip in 17 steps, three steps apart; with the
+# causal mask off by one, ten flips, four of them 0.16 to 0.38 apart.
+ARGMAX_GAP = 0.1
+N_DECODE = 16
 
 
 def log(*a) -> None:
@@ -153,7 +215,7 @@ def phase_kernels(res: dict) -> None:
 
     t0 = time.time()
     _build.build_all(verbose=True)
-    log(f"[kernels] built both sources in {time.time() - t0:.1f} s")
+    log(f"[kernels] built all sources in {time.time() - t0:.1f} s")
 
     # ---- grouped_distance_topk at the quantized round's shapes
     gerr = 0.0
@@ -374,6 +436,333 @@ def scorer_on_index(bst, Q, res) -> None:
         f"l2/ip/cosine agree, max abs err {err:.3g}")
 
 
+# ------------------------------------------------------------ flash kernel
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, d, lens, causal, itemsize):
+    """Least time for one call: 4*d operations (two multiply-adds) per live
+    (query head, query, key) triple, counted from this call's kv_lens and
+    mask, at the bf16 tensor-core rate; against q, k, v read once and the
+    float32 output written once at the memory rate."""
+    i = np.arange(Sq)
+    pairs = 0
+    for L in (lens if lens is not None else [Skv] * B):
+        valid = min(max(int(L), 0), Skv)
+        pairs += int(np.clip(i + int(L) - Sq + 1, 0, valid).sum()) if causal else Sq * valid
+    ops = 4 * Hq * d * pairs
+    nbytes = (B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * itemsize + B * Hq * Sq * d * 4
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["bfloat16"] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def flash_inputs(seed, B, Hq, Hkv, Sq, Skv, d, dtype):
+    """q as the model hands it over (a [B, Sq, Hq, d] projection viewed as
+    [B, Hq, Sq, d]), k and v contiguous; numpy normals from ``seed``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, Hq, d), dtype=np.float32)).cuda().to(dtype)
+    k = torch.from_numpy(rng.standard_normal((B, Hkv, Skv, d), dtype=np.float32)).cuda().to(dtype)
+    v = torch.from_numpy(rng.standard_normal((B, Hkv, Skv, d), dtype=np.float32)).cuda().to(dtype)
+    return q.transpose(1, 2), k, v
+
+
+def flash_errs(o, p) -> tuple[float, float]:
+    """Largest absolute error, and largest error of a row (last axis) in L2
+    relative to the plain row's norm; a row of 0 in the plain version must
+    be 0 (its relative error is then 0, else inf)."""
+    import torch
+
+    diff = (o - p).float()
+    num, den = diff.norm(dim=-1), p.float().norm(dim=-1)
+    rel = torch.where(num == 0, torch.zeros_like(num), num / den)
+    return float(diff.abs().max()) if o.numel() else 0.0, float(rel.max()) if o.numel() else 0.0
+
+
+def flash_check(what, o, p) -> tuple[float, float]:
+    """The kernel's output o against the plain version's p, by element and
+    by row; returns (max abs err, max row relative err)."""
+    import torch
+
+    assert torch.isfinite(o).all(), f"flash {what}: non-finite output"
+    err, row = flash_errs(o, p)
+    bad = (o - p).abs() > FLASH_TOL * torch.clamp_min(p.abs(), 1.0)
+    assert not bad.any(), f"flash {what}: {int(bad.sum())} entries off, max abs err {err}"
+    assert row <= FLASH_ROW_TOL, f"flash {what}: a row is off by {row} relative (L2)"
+    return err, row
+
+
+def flash_pair(q, k, v, lens=None, causal=True):
+    """The kernel's and the plain version's output on the same inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o = ops.flash_attention(q, k, v, kv_lens=kv_lens, causal=causal)
+    return o, ref.flash_attention_ref(q, k, v, kv_lens=kv_lens, causal=causal)
+
+
+# rows of a causal Sq = Skv = S call held against the plain version: a block
+# [i0, i0 + n) of queries against the first i0 + n keys is exactly the
+# plain version's rows i0.. of the whole call (the last query aligns with
+# the last key), with [1, Hq, n, i0 + n] scores instead of [1, Hq, S, S]
+def row_blocks(S: int, n: int = 256) -> list[int]:
+    return [0, S // 2 - n // 2, S - n]
+
+
+def causal_rows(o, q, k, v, i0: int, n: int):
+    from repro_torch.kernels.flash_attention import ref
+
+    e = i0 + n
+    return o[:, :, i0:e], ref.flash_attention_ref(q[:, :, i0:e], k[:, :, :e], v[:, :, :e], causal=True)
+
+
+def phase_flash(res: dict, fault_libs: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    err = row = 0.0
+    checks = 0
+
+    def check(what, o, p):
+        nonlocal err, row, checks
+        e, r = flash_check(what, o, p)
+        err, row, checks = max(err, e), max(row, r), checks + 1
+
+    for dt in (torch.float32, torch.bfloat16):
+        for c, (B, Hq, Hkv, Sq, Skv, d, causal, lens) in enumerate(FLASH_CASES):
+            q, k, v = flash_inputs(100 + c, B, Hq, Hkv, Sq, Skv, d, dt)
+            check(f"{dt} case {c}", *flash_pair(q, k, v, lens, causal))
+        for d in (16, 32, 48, 80, 96, 112):  # every other head width the kernels take
+            q, k, v = flash_inputs(d, 2, 4, 2, 70, 130, d, dt)
+            check(f"{dt} d={d}", *flash_pair(q, k, v, (130, 90), True))
+        q = torch.full((1, 1, 64, 32), 30.0, device="cuda", dtype=dt)
+        v = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 1, 64, 32), dtype=np.float32)).cuda().to(dt)
+        check(f"{dt} logits of 30", *flash_pair(q, q.clone(), v))
+        for causal in (True, False):  # a row with no live key is 0; its neighbour is unaffected
+            for Sq in (1, 64):
+                q, k, v = flash_inputs(7 + Sq, 2, 4, 2, Sq, 300, 128, dt)
+                o, p = flash_pair(q, k, v, (0, 300), causal)
+                assert bool((o[0] == 0).all()), "flash: a row with kv_len 0 is not 0"
+                check(f"{dt} kv_len 0 Sq={Sq} causal={causal}", o, p)
+    log(f"[flash] the six reference cases, d=16..128, logits of 30 and rows with kv_len 0 (which are 0) "
+        f"agree in float32 and bf16 ({checks} checks; max abs err {err:.3g}, max row err {row:.3g}; "
+        f"limits {FLASH_TOL} by element, {FLASH_ROW_TOL} by row)")
+
+    Hq, Hkv, d = 24, 8, 128  # phi4-mini's attention
+    q, k, v = flash_inputs(11, 1, Hq, Hkv, 4096, 4096, d, torch.bfloat16)
+    o4, p4 = flash_pair(q, k, v)
+    check("bf16 1x24x4096x128", o4, p4)
+    qc = q.contiguous()
+    lib = lambda: F.scaled_dot_product_attention(qc, k, v, is_causal=True, enable_gqa=True)
+    lib_err = float((lib().float() - o4).abs().max())
+    log(f"[flash] bf16 [1,24,4096,128] x [1,8,4096,128] causal agrees (max abs err so far {err:.3g}, "
+        f"max row err {row:.3g}; the library yardstick differs by {lib_err:.3g})")
+    t4 = {
+        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 10, 2),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 5, 1),
+        "library_ms": cuda_ms(lib, 10, 2),
+    }
+    t4["bound_ms"], t4["bound_by"] = flash_bound_ms(1, Hq, Hkv, 4096, 4096, d, None, True, 2)
+    log(f"[flash] S=4096 bf16 causal: {json.dumps(t4)}")
+    del o4, p4, qc
+    S = 32768
+    q32, k32, v32 = flash_inputs(12, 1, Hq, Hkv, S, S, d, torch.bfloat16)
+    o32 = ops.flash_attention(q32, k32, v32)
+    for i0 in row_blocks(S):
+        check(f"bf16 S={S} rows {i0}..{i0 + 255}", *causal_rows(o32, q32, k32, v32, i0, 256))
+    log(f"[flash] S={S} bf16 causal, the prefill's call: rows {row_blocks(S)} (+256 each) against the "
+        f"plain version agree (max abs err so far {err:.3g}, max row err {row:.3g})")
+    res["flash_err"], res["flash_row_err"] = err, row
+    del o32
+    qc = q32.contiguous()
+    t32 = {
+        "ms": cuda_ms(lambda: ops.flash_attention(q32, k32, v32), 3, 1),
+        "plain_ms": None,  # the plain version of the whole call would hold [1, 24, S, S] float32 scores: 103 GB
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qc, k32, v32, is_causal=True, enable_gqa=True), 5, 1),
+    }
+    t32["bound_ms"], t32["bound_by"] = flash_bound_ms(1, Hq, Hkv, S, S, d, None, True, 2)
+    log(f"[flash] S={S} bf16 causal: {json.dumps(t32)}")
+    res["flash_4k"], res["flash_32k"] = t4, t32
+    del qc
+
+    # the planted faults: each must break the S=4096 check and the S=32768 row blocks
+    for name, flib in fault_libs.items():
+        with planted(flib):
+            o4 = ops.flash_attention(q, k, v)
+            o32 = ops.flash_attention(q32, k32, v32)
+        reading = {"S=4096": flash_errs(o4, ref.flash_attention_ref(q, k, v))}
+        for i0 in row_blocks(S):
+            reading[f"S={S} rows {i0}"] = flash_errs(*causal_rows(o32, q32, k32, v32, i0, 256))
+        del o4, o32
+        log(f"[flash] planted fault {name}: (max abs err, max row err) {json.dumps(reading)}")
+        for where, (_, r) in reading.items():
+            assert r > FLASH_ROW_TOL, f"flash: the check does not see {name} at {where} (row err {r})"
+    del q, k, v, q32, k32, v32
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- planted faults
+def start_fault_builds(out: Path) -> dict:
+    """One nvcc process for each of FAULTS, on a copy of
+    csrc/flash_attention.cu with that one change, all started at once."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    procs = {}
+    for name, (old, new) in FAULTS.items():
+        assert src.count(old) == 1, f"fault {name}: {old!r} is not once in flash_attention.cu"
+        cu, so = out / f"{name}.cu", out / f"{name}.so"
+        cu.write_text(src.replace(old, new))
+        cmd = [_build.nvcc_path(), *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def load_faults(procs: dict) -> dict:
+    """Waits for the builds; name -> the loaded library."""
+    from repro_torch.kernels import _build
+
+    libs = {}
+    for name, (so, p) in procs.items():
+        out, _ = p.communicate()
+        assert p.returncode == 0, f"nvcc of the planted fault {name} failed:\n{out}"
+        cdll = ctypes.CDLL(str(so))
+        for fn, argtypes in _build.SIGNATURES["flash_attention"].items():
+            getattr(cdll, fn).argtypes = argtypes
+            getattr(cdll, fn).restype = ctypes.c_int
+        libs[name] = cdll
+    return libs
+
+
+@contextlib.contextmanager
+def planted(flib):
+    """The flash wrapper launches ``flib``'s kernel instead of the real one."""
+    from repro_torch.kernels import _build
+
+    real = _build.lib
+    _build.lib = lambda name: flib if name == "flash_attention" else real(name)
+    try:
+        yield
+    finally:
+        _build.lib = real
+
+
+# ------------------------------------------------------------------ LM path
+def lm_run(params, tokens, cfg, decode_tokens=None) -> dict:
+    """prefill then N_DECODE decode steps through the user's entry points;
+    greedy next tokens unless ``decode_tokens`` are given.  Returns the
+    logits of every step (on the host) and the times."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as T
+
+    S = tokens.shape[1]
+    kernel_events = []
+    real = ops.flash_attention
+
+    def timed(*a, **kw):  # CUDA events around each kernel call of the prefill
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        kernel_events.append((e0, e1))
+        return out
+
+    out = {"impl": cfg.attn_impl}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention = timed
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, tokens, cfg, max_seq=S + N_DECODE)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = real
+    out["launches"] = ops.launches["flash_attention"]
+    out["kernel_s"] = sum(a.elapsed_time(b) for a, b in kernel_events) / 1e3
+    out["prefill_tok_s"] = tokens.numel() / out["prefill_s"]
+    steps = [logits.cpu()]
+    toks, step_ms = [], []
+    for i in range(N_DECODE):
+        nxt = (torch.argmax(logits, dim=-1) if decode_tokens is None else decode_tokens[i]).to(tokens.device)
+        toks.append(nxt.cpu())
+        t0 = time.perf_counter()
+        logits, cache = T.decode_step(params, cache, nxt, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(logits.cpu())
+    out["decode_ms"] = float(np.mean(step_ms))
+    out["decode_ms_first_last"] = [step_ms[0], step_ms[-1]]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    torch.cuda.empty_cache()
+    return out, steps, toks
+
+
+def logit_errs(f_steps, c_steps) -> list[float]:
+    """Relative L2 error of the logits, step by step."""
+    return [float((a - b).norm() / b.norm()) for a, b in zip(f_steps, c_steps)]
+
+
+def argmax_flips(f_steps, c_steps) -> list:
+    """(step, gap) where the argmax differs: the gap between the chunked
+    run's logits at the two places."""
+    out = []
+    for i, (a, b) in enumerate(zip(f_steps, c_steps)):
+        ia, ib = int(a.argmax()), int(b.argmax())
+        if ia != ib:
+            out.append((i, float(b[0, ib] - b[0, ia])))
+    return out
+
+
+def phase_lm(res: dict, seed: int, fault_libs: dict) -> None:
+    import torch
+    from repro_torch.configs import lm_archs, shapes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import param_count
+
+    cfg = lm_archs.get("phi4-mini-3.8b")
+    pre, dec = shapes.LM_SHAPES["prefill_32k"], shapes.LM_SHAPES["decode_32k"]
+    S = pre["seq"]
+    log(f"reduced: lm batch {pre['batch']} -> 1 for prefill (prefill_32k), {dec['batch']} -> 1 for decode "
+        f"(decode_32k; {N_DECODE} steps after the {S}-token prompt); width and depth "
+        f"({cfg.n_layers} layers) as phi4-mini-3.8b's")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[lm] {cfg.name}: {param_count(T.param_specs(cfg)) / 1e9:.3f} B parameters in {cfg.dtype}, "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    flash_cfg = replace(cfg, attn_impl="flash")
+    fl, f_steps, f_toks = lm_run(params, tokens, flash_cfg)
+    log(f"[lm] flash: {json.dumps(fl)}")
+    assert fl["launches"] == cfg.n_layers, f"flash prefill launched the kernel {fl['launches']} times"
+    ch, c_steps, _ = lm_run(params, tokens, replace(cfg, attn_impl="chunked"), decode_tokens=f_toks)
+    log(f"[lm] chunked: {json.dumps(ch)}")
+    assert ch["launches"] == 0, ch
+    for i, (a, b) in enumerate(zip(f_steps, c_steps)):
+        assert a.shape == (1, cfg.vocab) and torch.isfinite(a).all() and torch.isfinite(b).all(), i
+    rel, flips = logit_errs(f_steps, c_steps), argmax_flips(f_steps, c_steps)
+    log(f"[lm] flash vs chunked logits, relative L2 error by step (prefill, then decode): "
+        f"{json.dumps([round(r, 6) for r in rel])}; argmax differs at {len(flips)} of {len(rel)} steps "
+        f"(step, chunked gap): {flips}")
+    res["lm"] = {"flash": fl, "chunked": ch, "logit_rel_err": rel, "argmax_flips": flips}
+    for name, flib in fault_libs.items():  # how far a planted kernel fault moves the logits
+        with planted(flib):
+            _, p_steps, _ = lm_run(params, tokens, flash_cfg, decode_tokens=f_toks)
+        fr, ff = logit_errs(p_steps, c_steps), argmax_flips(p_steps, c_steps)
+        log(f"[lm] planted fault {name}: logits against chunked, relative L2 error by step "
+            f"{json.dumps([round(r, 6) for r in fr])}; argmax differs at {len(ff)} of {len(fr)} steps: {ff}")
+    del params
+    torch.cuda.empty_cache()
+    assert max(rel) < LOGIT_REL_TOL, f"flash and chunked logits differ by {max(rel)} (tolerance {LOGIT_REL_TOL})"
+    for i, gap in flips:
+        assert gap <= ARGMAX_GAP, f"step {i}: the argmax moved between logits {gap} apart"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-items", type=int, default=200_000)
@@ -394,12 +783,32 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     res: dict = {}
     t_all = time.time()
+    (ROOT / "build").mkdir(exist_ok=True)
+    fault_dir = Path(tempfile.mkdtemp(prefix="faults_", dir=ROOT / "build"))
+    fault_builds = start_fault_builds(fault_dir)
+    try:
+        kernels = run_phases(res, args, fault_builds, t_all)
+    finally:
+        for _, p in fault_builds.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(fault_dir, ignore_errors=True)
+    log(json.dumps({"kernels": kernels}))
+    log(f"total {time.time() - t_all:.1f} s")
+    log(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
+    """Every phase in order; returns the kernels line's entries."""
     phase_kernels(res)
     log(f"[kernels] phase done at {time.time() - t_all:.1f} s")
     from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, ecpfs_paper_full
     from repro_torch.data.synthetic import clustered_vectors
 
-    (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=ROOT / "build"))
     try:
         cfg = ecpfs_paper_full()
@@ -425,8 +834,13 @@ def main() -> int:
         log(f"[l2] phase done at {time.time() - t_all:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    fault_libs = load_faults(fault_builds)
+    phase_flash(res, fault_libs)
+    log(f"[flash] phase done at {time.time() - t_all:.1f} s")
+    phase_lm(res, args.seed, fault_libs)
+    log(f"[lm] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
-    g, t = res["grouped"], res["topk"]
+    g, t, f32k = res["grouped"], res["topk"], res["flash_32k"]
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",
@@ -440,13 +854,16 @@ def main() -> int:
          "launches": main_launches["distance_topk"],
          "max_abs_err": res["topk_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
+         "launches": res["lm"]["flash"]["launches"],
+         "max_abs_err": res["flash_err"], "ms": f32k["ms"], "plain_ms": res["flash_4k"]["plain_ms"],
+         "bound_ms": f32k["bound_ms"], "bound_by": f32k["bound_by"], "library_ms": f32k["library_ms"],
+         "shape": "B=1 Hq=24 Hkv=8 S=32768 d=128 bf16 causal", "plain_shape": "S=4096 (else the same)",
+         "max_row_rel_err": res["flash_row_err"]},
     ]
-    log(json.dumps({"kernels": kernels}))
-    log(f"total {time.time() - t_all:.1f} s")
-    log(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("distance_topk", "grouped_distance_topk")
+SOURCES = ("distance_topk", "grouped_distance_topk", "flash_attention")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -28,6 +28,8 @@ FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the exported functions (all return a cudaError_t as int)
 SIGNATURES = {
     "distance_topk": {
@@ -37,6 +39,10 @@ SIGNATURES = {
     "grouped_distance_topk": {
         "grouped_distance_topk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "grouped_smem_optin": [],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
     },
 }
 

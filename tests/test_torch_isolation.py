@@ -26,7 +26,9 @@ def _imported(path: Path) -> set:
 
 def test_the_port_has_sources():
     assert len(FILES) >= 17
-    assert {"distance_topk.cu", "grouped_distance_topk.cu"} <= {p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert {"distance_topk.cu", "grouped_distance_topk.cu", "flash_attention.cu"} <= {
+        p.name for p in (PORT / "csrc").glob("*.cu")
+    }
 
 
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(SRC.parent)) for p in FILES])
@@ -38,7 +40,9 @@ def test_no_source_imports_jax_or_repro(path):
 def test_importing_the_port_loads_neither():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.distance_topk, "
-        "repro_torch.kernels._build, repro_torch.configs.ecpfs_paper, repro_torch.data.synthetic\n"
+        "repro_torch.kernels._build, repro_torch.configs.ecpfs_paper, repro_torch.data.synthetic, "
+        "repro_torch.models, repro_torch.models.transformer, repro_torch.kernels.flash_attention, "
+        "repro_torch.configs.lm_archs, repro_torch.configs.shapes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )
