@@ -7,10 +7,12 @@ Phases, none of whose failures is caught:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when ``torch.cuda.is_available()`` is false.
-2. kernels: builds the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a) and holds each against its plain PyTorch version on the card at
-   the main path's shapes; times kernel, plain version, a library yardstick
-   (timed here only, never called by the port) and the bound.
+2. kernels: builds the four CUDA sources in ``src/repro_torch/csrc`` (nvcc,
+   sm_90a; prints the wgmma flash kernel's registers, shared memory and
+   spills) and holds the distance kernels against their plain PyTorch
+   versions on the card at the main path's shapes; times kernel, plain
+   version, a library yardstick (timed here only, never called by the
+   port) and the bound.
 3. main path at the paper's widths (``configs/ecpfs_paper.py``: dim 1152,
    float16 storage, cosine, cluster_cap 455, L=2, b=64, k=100, a batch of
    128, int8 companion): build on the card -> convert(quant="int8") ->
@@ -21,18 +23,22 @@ Phases, none of whose failures is caught:
    Then holds both kernels against their plain versions at the largest
    shapes the built index gives them (its largest leaves).
 4. l2: the same steps at a smaller collection with metric l2.
-5. flash: holds the flash-attention kernel against its plain version on the
-   card, by element and by row (the six cases of tests/test_kernels.py,
-   every head width and logits of 30, in float32 and bf16; batch rows with
-   kv_len = 0; the prefill's heads in bf16 at S=4096, and at S=32768 three
-   blocks of rows of the prefill's own call) and times it at S=4096 and
-   S=32768.  Then plants each of FAULTS in a copy of the kernel's source
-   (built alongside the real sources, in a temporary directory) and
-   asserts that these checks see it.
+5. flash: holds the flash-attention kernels against their plain version
+   on the card, by element and by row (the six cases of
+   tests/test_kernels.py, every head width and logits of 30, in float32
+   and bf16; batch rows with kv_len = 0; the wgmma kernel's edges: Sq and
+   kv_len off its 128-row tiles, one query over 32768 keys, v past kv_len
+   set to 1e4; the prefill's heads in bf16 at S=4096, and at S=32768 three
+   blocks of rows of the prefill's own call) and times the wgmma kernel
+   against the mma.sync kernel it replaced, in turns, at S=4096 and
+   S=32768.  Then plants each of FAULTS in a copy of the wgmma kernel's
+   source (built alongside the real sources, in a temporary directory)
+   and asserts that these checks see it.
 6. lm: phi4-mini-3.8b at full width and depth (``configs/lm_archs.py``),
    random weights from a seeded generator on the card: prefill of
    ``prefill_32k``'s 32768 tokens at batch 1 with ``attn_impl="flash"``
-   (32 kernel launches), 16 ``decode_step`` tokens, then the same tokens
+   (32 launches of the wgmma kernel, none of the others), 16
+   ``decode_step`` tokens, then the same tokens
    through the chunked plain-torch attention; asserts that the two agree at
    every step (relative L2 error of the logits, and the argmax).  The same
    run with each planted fault prints how far its logits move.
@@ -65,10 +71,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"float32": 67e12, "float16": 989e12, "bfloat16": 989e12, "int8": 1979e12}
 RTOL = 1e-4
 D = 1152
-# flash attention: the kernel against its plain version, whose p is float32
-# as the TPU kernel's.  Both kernels keep p in float32 (the bf16 one feeds
-# it to the tensor cores as two bf16 parts), so one tolerance holds both
-# dtypes.  By element |o - p| <= FLASH_TOL * max(1, |p|): the reference
+# flash attention: the kernels against their plain version, whose p is
+# float32 as the TPU kernel's.  Every kernel keeps p in float32 (the bf16
+# ones feed it to the tensor cores as two bf16 parts), so one tolerance
+# holds both dtypes.  By element |o - p| <= FLASH_TOL * max(1, |p|): the reference
 # holds its own kernel at 2e-5, the card sums in another order.  By row
 # |o - p|_2 <= FLASH_ROW_TOL * |p|_2: a late row's values are ~sqrt(e /
 # keys), ~0.01 at 32768 keys, far below the elementwise bound, and one key
@@ -76,14 +82,16 @@ D = 1152
 FLASH_TOL = 1e-4
 # A row's error grows about in proportion to its keys, as an accumulation
 # that truncates (the tensor cores' float32 adder) would make it: 1.4e-5 at
-# 4096, 9.3e-5 at 32768 measured on the H100; the planted faults give
+# 4096, 9.3e-5 at 32768 measured on the H100, with the mma.sync and the
+# wgmma kernel alike; the planted faults give
 # 2.9e-2 and more in every block checked.
 FLASH_ROW_TOL = 1e-3
-# faults planted in a copy of csrc/flash_attention.cu (the tensor-core
-# kernel, which the prefill runs): the checks above must see each
+# faults planted in a copy of csrc/flash_attention_wgmma.cu (the kernel the
+# prefill runs): the checks above must see each
+FAULT_SOURCE = "flash_attention_wgmma"
 FAULTS = {
-    "causal_off_by_one": ("kj <= qi[row] + off);", "kj <= qi[row] + off + 1);"),
-    "scale_x1.01": ("s[n][u] * p.scale", "s[n][u] * (p.scale * 1.01f)"),
+    "causal_off_by_one": ("kj <= qi + off);", "kj <= qi + off + 1);"),
+    "scale_x1.01": ("p.scale * kLog2e", "p.scale * 1.01f * kLog2e"),
 }
 FLASH_CASES = [  # tests/test_kernels.py:146-153
     (2, 4, 2, 128, 128, 64, True, None),
@@ -97,16 +105,17 @@ FLASH_CASES = [  # tests/test_kernels.py:146-153
 # the relative L2 error of the logits at every step.  In bf16 chunked
 # rounds p / sum to bf16 for its p v product, where the kernel keeps p in
 # float32, and 32 layers carry the difference through the residual stream.
-# Readings on the H100 at full depth: 1.82-2.13e-2; with the kernel's
-# causal mask off by one 0.150-0.158, with its scale off by 1% 2.3-2.9e-2
-# (inside the limit: the kernel checks above see that fault, this one
-# does not).
+# Readings on the H100 at full depth: 1.82-2.13e-2 with the mma.sync
+# kernel, 1.76-2.09e-2 with the wgmma one; with the kernel's causal mask off
+# by one 0.149-0.158, with its scale off by 1% 2.3-2.9e-2 (inside the
+# limit: the kernel checks above see that fault, this one does not).
 LOGIT_REL_TOL = 3e-2
 # The argmax may differ only between logits at most this far apart in the
 # chunked run.  The logits are bf16, 1/32 apart at the top (values 4 to 8),
 # so this admits three steps; random weights leave such near-ties.
-# Readings on the H100: one flip in 17 steps, three steps apart; with the
-# causal mask off by one, ten flips, four of them 0.16 to 0.38 apart.
+# Readings on the H100: one flip in 17 steps, three steps apart (mma.sync
+# kernel), two or three flips each one step (1/32) apart (wgmma kernel);
+# with the causal mask off by one, five to ten flips, up to 0.38 apart.
 ARGMAX_GAP = 0.1
 N_DECODE = 16
 
@@ -216,6 +225,10 @@ def phase_kernels(res: dict) -> None:
     t0 = time.time()
     _build.build_all(verbose=True)
     log(f"[kernels] built all sources in {time.time() - t0:.1f} s")
+    if "flash_attention_wgmma" in _build.build_logs:
+        res["wgmma_ptxas"] = ptxas_report(_build.build_logs["flash_attention_wgmma"], "flash_fwd_wgmma_kernel")
+        res["wgmma_ptxas"]["smem_dynamic_bytes"] = _build.lib("flash_attention_wgmma").flash_attention_wgmma_smem_bytes()
+        log(f"[kernels] flash_fwd_wgmma_kernel, ptxas: {json.dumps(res['wgmma_ptxas'])}")
 
     # ---- grouped_distance_topk at the quantized round's shapes
     gerr = 0.0
@@ -437,20 +450,53 @@ def scorer_on_index(bst, Q, res) -> None:
 
 
 # ------------------------------------------------------------ flash kernel
-def flash_bound_ms(B, Hq, Hkv, Sq, Skv, d, lens, causal, itemsize):
-    """Least time for one call: 4*d operations (two multiply-adds) per live
-    (query head, query, key) triple, counted from this call's kv_lens and
-    mask, at the bf16 tensor-core rate; against q, k, v read once and the
-    float32 output written once at the memory rate."""
+def flash_ops(B, Hq, Sq, Skv, d, lens, causal) -> int:
+    """Operations one call needs: 4*d (two multiply-adds) per live (query
+    head, query, key) triple, counted from this call's kv_lens and mask."""
     i = np.arange(Sq)
     pairs = 0
     for L in (lens if lens is not None else [Skv] * B):
         valid = min(max(int(L), 0), Skv)
         pairs += int(np.clip(i + int(L) - Sq + 1, 0, valid).sum()) if causal else Sq * valid
-    ops = 4 * Hq * d * pairs
+    return 4 * Hq * d * pairs
+
+
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, d, lens, causal, itemsize):
+    """Least time for one call: ``flash_ops`` at the bf16 tensor-core rate,
+    against q, k, v read once and the float32 output written once at the
+    memory rate."""
+    ops = flash_ops(B, Hq, Sq, Skv, d, lens, causal)
     nbytes = (B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * itemsize + B * Hq * Sq * d * 4
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["bfloat16"] * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def flash_turns(new, old, iters: int, warmup: int) -> dict:
+    """The wgmma kernel and the mma.sync one it replaced, timed in turns
+    (new, old, old, new) on the same inputs; means of each pair."""
+    t = [cuda_ms(f, iters, warmup) for f in (new, old, old, new)]
+    return {"ms": (t[0] + t[3]) / 2, "mma_sync_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+
+
+def tflops(n_ops: int, ms: float) -> float:
+    return n_ops / (ms * 1e-3) / 1e12
+
+
+def ptxas_report(log_text: str, kernel: str) -> dict:
+    """Registers, shared memory and spills of one kernel from nvcc's -Xptxas -v output."""
+    import re
+
+    blocks = log_text.split("Compiling entry function")
+    hit = [b for b in blocks[1:] if kernel in b.splitlines()[0]]
+    assert hit, f"ptxas said nothing of {kernel}"
+    b = hit[0]
+    num = lambda pat: int(m.group(1)) if (m := re.search(pat, b)) else None
+    # ptxas names the kernel in its warnings (e.g. C7512, wgmma serialized) before the entry's block
+    notes = [ln.strip() for ln in log_text.splitlines()
+             if kernel in ln and ("warning" in ln.lower() or "Performance" in ln or "(C7" in ln)]
+    return {"registers_at_entry": num(r"Used (\d+) registers"), "smem_static_bytes": num(r"(\d+) bytes smem") or 0,
+            "spill_stores": num(r"(\d+) bytes spill stores"), "spill_loads": num(r"(\d+) bytes spill loads"),
+            "stack_bytes": num(r"(\d+) bytes stack frame"), "notes": notes}
 
 
 def flash_inputs(seed, B, Hq, Hkv, Sq, Skv, d, dtype):
@@ -535,9 +581,10 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
         for d in (16, 32, 48, 80, 96, 112):  # every other head width the kernels take
             q, k, v = flash_inputs(d, 2, 4, 2, 70, 130, d, dt)
             check(f"{dt} d={d}", *flash_pair(q, k, v, (130, 90), True))
-        q = torch.full((1, 1, 64, 32), 30.0, device="cuda", dtype=dt)
-        v = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 1, 64, 32), dtype=np.float32)).cuda().to(dt)
-        check(f"{dt} logits of 30", *flash_pair(q, q.clone(), v))
+        for dl in (32, 128):  # logits of 30 (scores near 5000 and 10000)
+            q = torch.full((1, 1, 64, dl), 30.0, device="cuda", dtype=dt)
+            v = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 1, 64, dl), dtype=np.float32)).cuda().to(dt)
+            check(f"{dt} logits of 30 d={dl}", *flash_pair(q, q.clone(), v))
         for causal in (True, False):  # a row with no live key is 0; its neighbour is unaffected
             for Sq in (1, 64):
                 q, k, v = flash_inputs(7 + Sq, 2, 4, 2, Sq, 300, 128, dt)
@@ -548,21 +595,40 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
         f"agree in float32 and bf16 ({checks} checks; max abs err {err:.3g}, max row err {row:.3g}; "
         f"limits {FLASH_TOL} by element, {FLASH_ROW_TOL} by row)")
 
+    # the wgmma kernel's edges (bf16, d = 128, phi4-mini's heads): Sq and
+    # kv_len not multiples of its 128-row tiles, one query over 32768 keys,
+    # and v rows past kv_len set to 1e4, where only an exact p = 0 keeps
+    # the rows right
     Hq, Hkv, d = 24, 8, 128  # phi4-mini's attention
+    n0 = ops.launches["flash_attention_wgmma"]
+    edges = [(2, 4173, 4173, (4173, 1000), True), (2, 4173, 4173, (4173, 1000), False),
+             (1, 1, 32768, None, True), (2, 1, 32768, (32768, 20001), True)]
+    for c, (B, Sq, Skv, lens, causal) in enumerate(edges):
+        q, k, v = flash_inputs(40 + c, B, Hq, Hkv, Sq, Skv, d, torch.bfloat16)
+        for b, L in enumerate(lens or ()):
+            v[b, :, L:] = 1e4
+        check(f"bf16 edge B={B} Sq={Sq} Skv={Skv} kv_lens={lens} causal={causal}", *flash_pair(q, k, v, lens, causal))
+    assert ops.launches["flash_attention_wgmma"] - n0 == len(edges), ops.launches
+    del q, k, v
+    log(f"[flash] wgmma kernel edges agree: S=4173 with kv_lens (4173, 1000) causal and not, Sq=1 over "
+        f"32768 keys, v past kv_len = 1e4 (max abs err so far {err:.3g}, max row err {row:.3g})")
+
     q, k, v = flash_inputs(11, 1, Hq, Hkv, 4096, 4096, d, torch.bfloat16)
     o4, p4 = flash_pair(q, k, v)
     check("bf16 1x24x4096x128", o4, p4)
+    check("bf16 1x24x4096x128, the mma.sync kernel", ops.flash_attention_mma(q, k, v), p4)
     qc = q.contiguous()
     lib = lambda: F.scaled_dot_product_attention(qc, k, v, is_causal=True, enable_gqa=True)
     lib_err = float((lib().float() - o4).abs().max())
-    log(f"[flash] bf16 [1,24,4096,128] x [1,8,4096,128] causal agrees (max abs err so far {err:.3g}, "
-        f"max row err {row:.3g}; the library yardstick differs by {lib_err:.3g})")
-    t4 = {
-        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 10, 2),
-        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 5, 1),
-        "library_ms": cuda_ms(lib, 10, 2),
-    }
+    log(f"[flash] bf16 [1,24,4096,128] x [1,8,4096,128] causal agrees, wgmma and mma.sync kernels (max abs "
+        f"err so far {err:.3g}, max row err {row:.3g}; the library yardstick differs by {lib_err:.3g})")
+    t4 = flash_turns(lambda: ops.flash_attention(q, k, v), lambda: ops.flash_attention_mma(q, k, v), 10, 2)
+    t4["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 5, 1)
+    t4["library_ms"] = cuda_ms(lib, 10, 2)
     t4["bound_ms"], t4["bound_by"] = flash_bound_ms(1, Hq, Hkv, 4096, 4096, d, None, True, 2)
+    n4 = flash_ops(1, Hq, 4096, 4096, d, None, True)
+    t4["tflops_counted"], t4["tflops_issued"] = tflops(n4, t4["ms"]), 1.5 * tflops(n4, t4["ms"])
+    t4["mma_sync_tflops_counted"] = tflops(n4, t4["mma_sync_ms"])
     log(f"[flash] S=4096 bf16 causal: {json.dumps(t4)}")
     del o4, p4, qc
     S = 32768
@@ -575,12 +641,14 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
     res["flash_err"], res["flash_row_err"] = err, row
     del o32
     qc = q32.contiguous()
-    t32 = {
-        "ms": cuda_ms(lambda: ops.flash_attention(q32, k32, v32), 3, 1),
-        "plain_ms": None,  # the plain version of the whole call would hold [1, 24, S, S] float32 scores: 103 GB
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qc, k32, v32, is_causal=True, enable_gqa=True), 5, 1),
-    }
+    t32 = flash_turns(lambda: ops.flash_attention(q32, k32, v32), lambda: ops.flash_attention_mma(q32, k32, v32), 3, 1)
+    # the plain version of the whole call would hold [1, 24, S, S] float32 scores: 103 GB
+    t32["plain_ms"] = None
+    t32["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qc, k32, v32, is_causal=True, enable_gqa=True), 5, 1)
     t32["bound_ms"], t32["bound_by"] = flash_bound_ms(1, Hq, Hkv, S, S, d, None, True, 2)
+    n32 = flash_ops(1, Hq, S, S, d, None, True)
+    t32["tflops_counted"], t32["tflops_issued"] = tflops(n32, t32["ms"]), 1.5 * tflops(n32, t32["ms"])
+    t32["mma_sync_tflops_counted"] = tflops(n32, t32["mma_sync_ms"])
     log(f"[flash] S={S} bf16 causal: {json.dumps(t32)}")
     res["flash_4k"], res["flash_32k"] = t4, t32
     del qc
@@ -604,13 +672,13 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
 # ---------------------------------------------------------- planted faults
 def start_fault_builds(out: Path) -> dict:
     """One nvcc process for each of FAULTS, on a copy of
-    csrc/flash_attention.cu with that one change, all started at once."""
+    csrc/<FAULT_SOURCE>.cu with that one change, all started at once."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    src = (_build.CSRC / f"{FAULT_SOURCE}.cu").read_text()
     procs = {}
     for name, (old, new) in FAULTS.items():
-        assert src.count(old) == 1, f"fault {name}: {old!r} is not once in flash_attention.cu"
+        assert src.count(old) == 1, f"fault {name}: {old!r} is not once in {FAULT_SOURCE}.cu"
         cu, so = out / f"{name}.cu", out / f"{name}.so"
         cu.write_text(src.replace(old, new))
         cmd = [_build.nvcc_path(), *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
@@ -627,7 +695,7 @@ def load_faults(procs: dict) -> dict:
         out, _ = p.communicate()
         assert p.returncode == 0, f"nvcc of the planted fault {name} failed:\n{out}"
         cdll = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES["flash_attention"].items():
+        for fn, argtypes in _build.SIGNATURES[FAULT_SOURCE].items():
             getattr(cdll, fn).argtypes = argtypes
             getattr(cdll, fn).restype = ctypes.c_int
         libs[name] = cdll
@@ -640,7 +708,7 @@ def planted(flib):
     from repro_torch.kernels import _build
 
     real = _build.lib
-    _build.lib = lambda name: flib if name == "flash_attention" else real(name)
+    _build.lib = lambda name: flib if name == FAULT_SOURCE else real(name)
     try:
         yield
     finally:
@@ -680,7 +748,8 @@ def lm_run(params, tokens, cfg, decode_tokens=None) -> dict:
         out["prefill_s"] = time.perf_counter() - t0
     finally:
         ops.flash_attention = real
-    out["launches"] = ops.launches["flash_attention"]
+    out["launches"] = ops.launches["flash_attention_wgmma"]
+    out["other_flash_launches"] = ops.launches["flash_attention"]
     out["kernel_s"] = sum(a.elapsed_time(b) for a, b in kernel_events) / 1e3
     out["prefill_tok_s"] = tokens.numel() / out["prefill_s"]
     steps = [logits.cpu()]
@@ -739,10 +808,12 @@ def phase_lm(res: dict, seed: int, fault_libs: dict) -> None:
     flash_cfg = replace(cfg, attn_impl="flash")
     fl, f_steps, f_toks = lm_run(params, tokens, flash_cfg)
     log(f"[lm] flash: {json.dumps(fl)}")
-    assert fl["launches"] == cfg.n_layers, f"flash prefill launched the kernel {fl['launches']} times"
+    assert fl["launches"] == cfg.n_layers and fl["other_flash_launches"] == 0, (
+        f"flash prefill launched the wgmma kernel {fl['launches']} times and the others "
+        f"{fl['other_flash_launches']} times")
     ch, c_steps, _ = lm_run(params, tokens, replace(cfg, attn_impl="chunked"), decode_tokens=f_toks)
     log(f"[lm] chunked: {json.dumps(ch)}")
-    assert ch["launches"] == 0, ch
+    assert ch["launches"] == ch["other_flash_launches"] == 0, ch
     for i, (a, b) in enumerate(zip(f_steps, c_steps)):
         assert a.shape == (1, cfg.vocab) and torch.isfinite(a).all() and torch.isfinite(b).all(), i
     rel, flips = logit_errs(f_steps, c_steps), argmax_flips(f_steps, c_steps)
@@ -855,13 +926,16 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "max_abs_err": res["topk_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
          "launches": res["lm"]["flash"]["launches"],
          "max_abs_err": res["flash_err"], "ms": f32k["ms"], "plain_ms": res["flash_4k"]["plain_ms"],
          "bound_ms": f32k["bound_ms"], "bound_by": f32k["bound_by"], "library_ms": f32k["library_ms"],
          "shape": "B=1 Hq=24 Hkv=8 S=32768 d=128 bf16 causal", "plain_shape": "S=4096 (else the same)",
-         "max_row_rel_err": res["flash_row_err"]},
+         "max_row_rel_err": res["flash_row_err"], "mma_sync_ms": f32k["mma_sync_ms"],
+         "tflops_counted": f32k["tflops_counted"], "tflops_issued": f32k["tflops_issued"],
+         "ms_4k": res["flash_4k"]["ms"], "mma_sync_ms_4k": res["flash_4k"]["mma_sync_ms"],
+         "ptxas": res.get("wgmma_ptxas")},
     ]
     return kernels
 

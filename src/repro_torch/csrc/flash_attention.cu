@@ -57,7 +57,10 @@
 // that its B fragments are 32-bit loads.  The scale multiplies the float32
 // scores instead of q, which differs from scaling q first only by float32
 // rounding.  Shared memory at d=128: 52 KB.
-// Later work: wgmma, TMA tile loads and a pipeline of k/v tiles.
+// The LM prefill's case, bfloat16 at d = 128, goes to the TMA + wgmma kernel
+// in flash_attention_wgmma.cu; the wrapper sends the other widths and
+// float32 here (and chip_smoke.py times this file's bf16 kernel at d = 128
+// beside that one, as the kernel it replaced).
 #include "common.cuh"
 
 namespace ecp {

@@ -20,7 +20,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("distance_topk", "grouped_distance_topk", "flash_attention")
+SOURCES = ("distance_topk", "grouped_distance_topk", "flash_attention", "flash_attention_wgmma")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,10 +44,18 @@ SIGNATURES = {
         "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P],
     },
+    "flash_attention_wgmma": {
+        "flash_attention_wgmma_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+        "flash_attention_wgmma_smem_bytes": [],
+    },
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# name -> nvcc's output (ptxas -v: registers, shared memory, spills) of the
+# sources built by this process
+build_logs: dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -97,6 +105,7 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
             if p.returncode != 0:
                 failed.append(f"--- nvcc {name}.cu (exit {p.returncode}):\n{out}")
                 continue
+            build_logs[name] = out
             if verbose:
                 print(f"--- nvcc {name}.cu:\n{out}", flush=True)
             os.replace(tmp, todo[name])

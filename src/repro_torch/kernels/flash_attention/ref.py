@@ -3,14 +3,15 @@
 * ``mha_ref`` is the reference's oracle (``repro.kernels.flash_attention.ref``)
   as it is: a row with no live key comes out NaN.  ``attention(impl="full")``
   uses it.
-* ``flash_attention_ref`` computes what the Hopper kernel
-  (``csrc/flash_attention.cu``) and the TPU kernel it replaces compute:
+* ``flash_attention_ref`` computes what the Hopper kernels
+  (``csrc/flash_attention_wgmma.cu``, ``csrc/flash_attention.cu``) and the
+  TPU kernel they replace compute:
   float32 arithmetic from the inputs cast to float32, ``scale`` applied to q
   first, query head h reading kv head ``h // (Hq // Hkv)``, per-batch
   ``kv_lens``, the last query aligned to the last valid key
   (``q_end_offset = kv_len - Sq``), float32 output, and 0 for a row with no
   live key.  ``ops.flash_attention`` runs it for CPU tensors;
-  ``chip_smoke.py`` holds the kernel against it on the card.  It
+  ``chip_smoke.py`` holds the kernels against it on the card.  It
   materializes the ``[B, Hq, Sq, Skv]`` scores.
 """
 from __future__ import annotations

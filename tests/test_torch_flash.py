@@ -120,7 +120,8 @@ def test_planted_faults_match_the_kernel_source():
     spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    src = (root / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    assert smoke.FAULT_SOURCE == "flash_attention_wgmma"  # the kernel the prefill runs
+    src = (root / f"src/repro_torch/csrc/{smoke.FAULT_SOURCE}.cu").read_text()
     assert smoke.FAULTS
     for old, new in smoke.FAULTS.values():
         assert src.count(old) == 1 and old != new
@@ -133,7 +134,7 @@ def test_cpu_dispatch_takes_the_plain_version_and_counts_no_launch():
     qs = q.transpose(1, 2).contiguous().transpose(1, 2)
     o = flash_attention(qs, k, v, causal=True, scale=0.3)
     assert torch.equal(o, flash_attention_ref(q, k, v, causal=True, scale=0.3))
-    assert ops.launches == {"flash_attention": 0}
+    assert ops.launches == {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -147,3 +148,58 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q4[0], k, v)
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q4.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("dtype,d,kind", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 16, "mma"), (torch.bfloat16, 112, "mma"),
+    (torch.float32, 128, "fma"), (torch.float32, 32, "fma"),
+])
+def test_route_sends_bf16_at_d128_to_the_wgmma_kernel(dtype, d, kind):
+    assert ops.route(dtype, d) == kind
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_tma_rule_takes_the_models_strided_views_without_a_copy():
+    """q, k, v as the model hands them over: [B, S, H, d] projections viewed
+    as [B, H, S, d], a sequence stride of H * d * 2 bytes."""
+    for H in (24, 8):
+        t = _bf16(2, 40, H, 128).transpose(1, 2)
+        assert not t.is_contiguous() and ops.loadable(t)
+        assert ops.as_loadable(t) is t
+    c = _bf16(1, 4, 40, 128)
+    assert ops.loadable(c) and ops.as_loadable(c) is c
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _bf16(4 * 40 * 128 + 1)[1:].view(1, 4, 40, 128),        # base 2 bytes past 16-byte alignment
+    lambda: _bf16(1, 4, 40, 132)[..., :128],                         # sequence stride 264 bytes
+    lambda: _bf16(1, 4, 40, 128).transpose(2, 3),                    # last dimension not contiguous
+    lambda: _bf16(1, 1, 40, 128).expand(1, 4, 40, 128),              # head stride 0
+], ids=["base", "seq_stride", "last_dim", "broadcast"])
+def test_tma_rule_copies_what_it_cannot_load(make):
+    t = make()
+    assert not ops.loadable(t)
+    c = ops.as_loadable(t)
+    assert c.is_contiguous() and ops.loadable(c) and torch.equal(c, t)
+
+
+def test_tma_rule_ignores_strides_of_length_one_dimensions():
+    """A stride of 3 elements (6 bytes) breaks TMA's rule, except on a
+    dimension of length 1, whose stride is never used."""
+    buf = _bf16(8 * 40 * 128)
+    assert ops.loadable(buf.as_strided((1, 1, 40, 128), (40 * 128, 3, 128, 1)))   # one head
+    assert not ops.loadable(buf.as_strided((1, 2, 40, 128), (40 * 128, 3, 128, 1)))
+    assert ops.loadable(buf.as_strided((2, 4, 1, 128), (4 * 128, 128, 3, 1)))     # Sq = 1
+    assert not ops.loadable(buf.as_strided((2, 4, 2, 128), (8 * 128, 256, 3, 1)))
+    f32 = torch.zeros(1, 4, 40, 130)[..., :128]  # float32: the FMA kernel reads any row stride
+    assert ops.loadable(f32)
+
+
+def test_mma_yardstick_runs_only_on_the_card():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 2, 2, 8, 8, 128))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.flash_attention_mma(q, k, v)

@@ -26,7 +26,7 @@ def _imported(path: Path) -> set:
 
 def test_the_port_has_sources():
     assert len(FILES) >= 17
-    assert {"distance_topk.cu", "grouped_distance_topk.cu", "flash_attention.cu"} <= {
+    assert {"distance_topk.cu", "grouped_distance_topk.cu", "flash_attention.cu", "flash_attention_wgmma.cu"} <= {
         p.name for p in (PORT / "csrc").glob("*.cu")
     }
 
