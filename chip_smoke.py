@@ -8,20 +8,34 @@ Phases, none of whose failures is caught:
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when ``torch.cuda.is_available()`` is false.
 2. kernels: builds the four CUDA sources in ``src/repro_torch/csrc`` (nvcc,
-   sm_90a; prints the wgmma flash kernel's registers, shared memory and
-   spills) and holds the distance kernels against their plain PyTorch
-   versions on the card at the main path's shapes; times kernel, plain
-   version, a library yardstick (timed here only, never called by the
-   port) and the bound.
+   sm_90a; prints the registers, shared memory and spills of the wgmma
+   flash kernel and of the two distance kernels' main-path instantiations)
+   and holds the distance kernels against their plain PyTorch versions on
+   the card at the main path's shapes, then at the edges of their designs:
+   grouped n_rows of 0, 1, T-1, T, T+1 and 5360 (T the row tile) at k of 1,
+   128, 224 and N; rows repeated across tiles (ties keep the lower row
+   first); full selection at N_pad 512, 1024 and 5632 with zero pad rows;
+   back-to-back calls on one stream; every finish counter back at 0.  Two
+   faults planted in copies of the grouped kernel (its merge breaking ties
+   by distance alone, its work list skipping a group's last tile) must make
+   these checks fail.  Times each distance kernel four ways: the wrapper
+   call under CUDA events (``ms``), its kernels' own time from
+   ``torch.profiler`` (``device_ms``), the same two for a library
+   yardstick (timed here only, never called by the port), beside the
+   bound; the grouped kernel also at the main path's skew (one leaf of
+   5360 rows among 455-row ones, padded to 5360).
 3. main path at the paper's widths (``configs/ecpfs_paper.py``: dim 1152,
    float16 storage, cosine, cluster_cap 455, L=2, b=64, k=100, a batch of
    128, int8 companion): build on the card -> convert(quant="int8") ->
    open_index(mode="file", quantized=True) -> search -> next(100), then a
    search through make_kernel_scorer().  Launch counters are zeroed just
    before and read just after.  Asserts bit-identity with the host fp
-   engine, launch counts, and prints recall@100 against brute force.
+   engine, launch counts, and prints recall@100 against brute force, and
+   the grouped kernel's time a round beside its bound (the codes of the
+   rows it reads, ``quant_times["code_bytes"]``, at the memory rate).
    Then holds both kernels against their plain versions at the largest
-   shapes the built index gives them (its largest leaves).
+   shapes the built index gives them (its largest leaves), and traces one
+   leaf-scorer call: one CUDA kernel launch.
 4. l2: the same steps at a smaller collection with metric l2.
 5. flash: holds the flash-attention kernels against their plain version
    on the card, by element and by row (the six cases of
@@ -86,12 +100,20 @@ FLASH_TOL = 1e-4
 # wgmma kernel alike; the planted faults give
 # 2.9e-2 and more in every block checked.
 FLASH_ROW_TOL = 1e-3
-# faults planted in a copy of csrc/flash_attention_wgmma.cu (the kernel the
-# prefill runs): the checks above must see each
-FAULT_SOURCE = "flash_attention_wgmma"
+# faults planted in a copy of one source (library, file changed, text, its
+# replacement), built beside the real ones: the checks must see each.  The
+# flash ones go into the kernel the prefill runs, the distance ones into the
+# grouped kernel's second level (the merge of its tiles' lists, in
+# common.cuh) and its tile grid.
 FAULTS = {
-    "causal_off_by_one": ("kj <= qi + off);", "kj <= qi + off + 1);"),
-    "scale_x1.01": ("p.scale * kLog2e", "p.scale * 1.01f * kLog2e"),
+    "causal_off_by_one": ("flash_attention_wgmma", "flash_attention_wgmma.cu",
+                          "kj <= qi + off);", "kj <= qi + off + 1);"),
+    "scale_x1.01": ("flash_attention_wgmma", "flash_attention_wgmma.cu",
+                    "p.scale * kLog2e", "p.scale * 1.01f * kLog2e"),
+    "merge_ties_by_distance": ("grouped_distance_topk", "common.cuh",
+                               "return a < b;", "return (a >> 32) <= (b >> 32);"),
+    "skip_last_tile": ("grouped_distance_topk", "grouped_distance_topk.cu",
+                       "return (n + kTile - 1) / kTile;", "return (n - 1) / kTile + (n <= kTile);"),
 }
 FLASH_CASES = [  # tests/test_kernels.py:146-153
     (2, 4, 2, 128, 128, 64, True, None),
@@ -175,9 +197,9 @@ def compare_topk(what: str, dk, ik, dp, ip) -> float:
 
 
 # ------------------------------------------------------------------ kernels
-def grouped_case(seed: int, G: int, N: int, qformat: str, *, ragged: bool):
+def grouped_case(seed: int, G: int, N: int, qformat: str, *, ragged: bool, n_rows=None):
     """G groups of N-row leaf blocks from clustered data, encoded as the blob
-    does; group 0 has no rows, the others ragged up to N."""
+    does; group 0 has no rows, the others ragged up to N (or ``n_rows``)."""
     import torch
     from repro_torch.core.quant import encode_node, qdtype
     from repro_torch.data.synthetic import clustered_vectors
@@ -188,9 +210,11 @@ def grouped_case(seed: int, G: int, N: int, qformat: str, *, ragged: bool):
     codes = np.zeros((G, N, D), qdtype(qformat))
     scales = np.zeros(G, np.float32)
     offsets = np.zeros(G, np.float32)
-    n_rows = rng.integers(N // 2, N + 1, size=G) if ragged else np.full(G, N)
-    n_rows[0] = 0
-    n_rows[1] = N
+    if n_rows is None:
+        n_rows = rng.integers(N // 2, N + 1, size=G) if ragged else np.full(G, N)
+        n_rows[0] = 0
+        n_rows[1] = N
+    n_rows = np.asarray(n_rows)
     for g in range(G):
         qn = encode_node(x[g * N : g * N + int(n_rows[g])], qformat)
         codes[g, : qn.n_rows] = qn.codes
@@ -217,7 +241,162 @@ def topk_bound_ms(B, N, k, dtype="float32", itemsize=4):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def phase_kernels(res: dict) -> None:
+def device_time(fn, iters: int = 20, tries: int = 8) -> tuple[float, float]:
+    """(ms on the card per call, summed over the call's kernels; kernels per
+    call), from torch.profiler with CUDA activity around ``iters`` calls.
+    Copies and memsets are not kernels and are left out.  The profiler now
+    and then drops the records of kernels launched from the port's own
+    libraries (seen on the H100: 3 of 5 scorer calls' kernels, late in a
+    run), so a trace whose kernel count is not a positive multiple of
+    ``iters`` is taken again, up to ``tries`` times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(tries):
+        ks = traced_kernels(fn, iters)
+        counts.append(len(ks))
+        if ks and len(ks) % iters == 0:
+            return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters, len(ks) / iters
+    raise AssertionError(f"torch.profiler saw {counts} kernels in {tries} traces of {iters} calls")
+
+
+def traced_kernels(fn, iters: int) -> list:
+    """The kernel records (no copies, no memsets) of ``iters`` calls under
+    torch.profiler with CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    # The calls sit 50 ms inside the trace at both ends: the records the
+    # profiler dropped on the H100 were of kernels near a trace's start.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def four_ways(kern, lib, iters: int) -> dict:
+    """The wrapper call and the library yardstick, each under CUDA events
+    (``ms``) and by the profiler's kernel time (``device_ms``)."""
+    out = {"ms": cuda_ms(kern, iters), "library_ms": cuda_ms(lib, iters)}
+    out["device_ms"], out["kernels_per_call"] = device_time(kern)
+    out["library_device_ms"], out["library_kernels_per_call"] = device_time(lib)
+    return out
+
+
+def counters_at_rest() -> None:
+    """Every finish counter of the distance kernels' workspaces is back at 0."""
+    import torch
+    from repro_torch.kernels.distance_topk import ops
+
+    torch.cuda.synchronize()
+    for key, (_, counters) in ops.workspaces.items():
+        left = int(torch.count_nonzero(counters))
+        assert left == 0, f"{left} finish counters of workspace {key} are not 0 after the launches"
+
+
+def edge_rows(tile: int) -> tuple:
+    """n_rows around the grouped kernel's row tile, and the largest leaf."""
+    return (0, 1, tile - 1, tile, tile + 1, 5360)
+
+
+def tie_case(seed: int, tile: int):
+    """Two int8 groups whose rows repeat across tile boundaries: group 0 is
+    one tile of rows twice over (rows r and r + tile equal), group 1 has
+    2 * tile + 88 rows whose last tile - 56 repeat its first ones, across
+    the boundary at 2 * tile."""
+    import torch
+
+    n1 = 2 * tile + 88
+    L = tile - 56
+    q, codes, scales, offsets, _ = grouped_case(seed, 2, n1 + 40, "int8", ragged=False, n_rows=(2 * tile, n1))
+    codes[0, tile : 2 * tile] = codes[0, :tile]
+    codes[1, n1 - L : n1] = codes[1, :L]
+    n_rows = torch.tensor([2 * tile, n1], dtype=torch.int32, device="cuda")
+    return q, codes, scales, offsets, n_rows
+
+
+def ties_in_order(what: str, dk, ik) -> None:
+    """Of two entries at an equal distance, the lower index comes first."""
+    dk, ik = np.asarray(dk.cpu()), np.asarray(ik.cpu())
+    same = (dk[:, 1:] == dk[:, :-1]) & np.isfinite(dk[:, 1:])
+    assert same.any(), f"{what}: the case has no tie"
+    bad = same & (ik[:, 1:] <= ik[:, :-1])
+    assert not bad.any(), f"{what}: {int(bad.sum())} ties out of index order, e.g. {np.argwhere(bad)[:3].tolist()}"
+
+
+def distance_edges(tag: str) -> list[str]:
+    """The distance kernels against their plain versions at the edges of
+    their designs; returns what failed (empty when everything agrees).
+    Launch errors are not caught."""
+    import torch
+    from repro_torch.kernels.distance_topk import ops, ref
+
+    fails = []
+
+    def check(what, fn):
+        try:
+            fn()
+        except AssertionError as e:
+            fails.append(f"{tag} {what}: {e}")
+
+    # grouped: n_rows of 0, 1, T-1, T, T+1 and 5360 in one launch (T the
+    # row tile), k of 1, 128, 224 and N, both code formats
+    rows = edge_rows(ops.GROUPED_TILE)
+    for qformat in ("int8", "float16"):
+        args = grouped_case(21, len(rows), 5360, qformat, ragged=False, n_rows=rows)
+        for k in (1, 128, 224, 5360):
+            dk, ik = ops.grouped_distance_topk_tensors(*args, k, "cosine", qformat)
+            dp, ip = ref.grouped_distance_topk_ref(*args, k, "cosine", qformat)
+            check(f"grouped n_rows={rows} {qformat} k={k}", lambda: compare_topk("", dk, ik, dp, ip))
+    # ties across tile boundaries: lower row first, whatever the k
+    args = tie_case(22, ops.GROUPED_TILE)
+    for k in (128, 224, 512):
+        dk, ik = ops.grouped_distance_topk_tensors(*args, k, "l2", "int8")
+        dp, ip = ref.grouped_distance_topk_ref(*args, k, "l2", "int8")
+        check(f"grouped ties k={k}", lambda: (compare_topk("", dk, ik, dp, ip), ties_in_order("", dk, ik)))
+    # full selection at the scorer's buckets, zero pad rows, and rows that
+    # repeat across the blocks' lists
+    rng = np.random.default_rng(23)
+    for n_pad in (512, 1024, 5632):
+        c = torch.from_numpy(rng.standard_normal((n_pad, D)).astype(np.float32)).cuda()
+        c[n_pad - 57:] = 0
+        c[n_pad // 2 : n_pad // 2 + 40] = c[:40]
+        qv = torch.from_numpy(rng.standard_normal((1, D)).astype(np.float32)).cuda()
+        for metric in ("l2", "cosine"):
+            dk, ik = ops.distance_topk(qv, c, n_pad, metric)
+            dp, ip = ref.distance_topk_ref(qv, c, n_pad, metric)
+            check(f"distance_topk full N_pad={n_pad} {metric}",
+                  lambda: (compare_topk("", dk, ik, dp, ip), ties_in_order("", dk, ik)))
+    # back to back on one stream, no synchronisation between: a counter or a
+    # list left over from one call would show in the next
+    g455 = grouped_case(24, 128, 455, "int8", ragged=True)
+    edge = grouped_case(25, len(rows), 5360, "int8", ragged=False, n_rows=rows)
+    c512 = torch.from_numpy(rng.standard_normal((512, D)).astype(np.float32)).cuda()
+    c5632 = torch.from_numpy(rng.standard_normal((5632, D)).astype(np.float32)).cuda()
+    qv = torch.from_numpy(rng.standard_normal((3, D)).astype(np.float32)).cuda()
+    seq = [("grouped 455 k=128", ops.grouped_distance_topk_tensors, ref.grouped_distance_topk_ref, (*g455, 128, "cosine")),
+           ("grouped edges k=5360", ops.grouped_distance_topk_tensors, ref.grouped_distance_topk_ref, (*edge, 5360, "cosine")),
+           ("full 512", ops.distance_topk, ref.distance_topk_ref, (qv[:1], c512, 512, "cosine")),
+           ("grouped 455 k=1", ops.grouped_distance_topk_tensors, ref.grouped_distance_topk_ref, (*g455, 1, "l2")),
+           ("full 5632 B=3", ops.distance_topk, ref.distance_topk_ref, (qv, c5632, 5632, "l2")),
+           ("grouped edges k=224", ops.grouped_distance_topk_tensors, ref.grouped_distance_topk_ref, (*edge, 224, "ip")),
+           ("full 512 B=3", ops.distance_topk, ref.distance_topk_ref, (qv, c512, 600, "ip"))]
+    outs = [kern(*a) for _, kern, _, a in seq]
+    torch.cuda.synchronize()
+    for (what, _, plain, a), (dk, ik) in zip(seq, outs):
+        dp, ip = plain(*a)
+        check(f"back to back: {what}", lambda: compare_topk("", dk, ik, dp, ip))
+    check("finish counters", counters_at_rest)
+    return fails
+
+
+def phase_kernels(res: dict, fault_builds: dict) -> None:
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.distance_topk import ops, ref
@@ -229,6 +408,12 @@ def phase_kernels(res: dict) -> None:
         res["wgmma_ptxas"] = ptxas_report(_build.build_logs["flash_attention_wgmma"], "flash_fwd_wgmma_kernel")
         res["wgmma_ptxas"]["smem_dynamic_bytes"] = _build.lib("flash_attention_wgmma").flash_attention_wgmma_smem_bytes()
         log(f"[kernels] flash_fwd_wgmma_kernel, ptxas: {json.dumps(res['wgmma_ptxas'])}")
+    # the instantiations on the main path: int8 codes through the ring, float32 rows with 16-byte loads
+    for name, kern in (("grouped_distance_topk", "grouped_tile_kernelIaLb1E"),
+                       ("distance_topk", "full_select_kernelIfLb1E")):
+        if name in _build.build_logs:
+            res[f"{name}_ptxas"] = ptxas_report(_build.build_logs[name], kern)
+            log(f"[kernels] {kern}, ptxas: {json.dumps(res[f'{name}_ptxas'])}")
 
     # ---- grouped_distance_topk at the quantized round's shapes
     gerr = 0.0
@@ -244,28 +429,6 @@ def phase_kernels(res: dict) -> None:
                     gerr = max(gerr, e)
             log(f"[kernels] grouped_distance_topk G=128 N={N} {qformat}: l2/ip/cosine, k=128 and k=N agree (max abs err so far {gerr:.3g})")
     res["grouped_err"] = gerr
-
-    # timing at the main path's shape: G=128, a 455-row leaf, int8, cosine
-    G, N, k = 128, 455, 128
-    args = grouped_case(5, G, N, "int8", ragged=False)
-    q, codes, scales, offsets, n_rows = args
-    kern = lambda: ops.grouped_distance_topk_tensors(*args, k, "cosine", "int8")
-    plain = lambda: ref.grouped_distance_topk_ref(*args, k, "cosine", "int8")
-    # yardstick: decode, one batched product (inner-product scores), top-k
-    lib = lambda: torch.topk(torch.bmm(codes.float() * scales[:, None, None] + offsets[:, None, None],
-                                       q[:, :, None])[..., 0], k, dim=1)
-    host = torch.empty(codes.numel(), dtype=torch.int8, pin_memory=True)
-    dev = torch.empty_like(codes).view(-1)
-    h2d = lambda: dev.copy_(host, non_blocking=True)
-    g = {
-        "ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 20),
-        "library_ms": cuda_ms(lib, 20), "h2d_ms": cuda_ms(h2d, 20),
-    }
-    g["bound_ms"], g["bound_by"] = grouped_bound_ms(G, int(n_rows.sum()), k)
-    g["h2d_bytes"] = codes.numel()
-    res["grouped"] = g
-    log(f"[kernels] grouped_distance_topk G={G} N={N} D={D} int8 cosine k={k}: "
-        + json.dumps({a: round(b, 6) if isinstance(b, float) else b for a, b in g.items()}))
 
     # ---- distance_topk: the scorer's full selection, then the merge path
     terr = 0.0
@@ -297,18 +460,76 @@ def phase_kernels(res: dict) -> None:
     merge["bound_ms"], merge["bound_by"] = topk_bound_ms(B, N, k)
     res["topk_merge"] = merge
     log(f"[kernels] distance_topk merge path B={B} N={N} D={D} f32 l2 k={k}: {json.dumps(merge)}")
+    del qb, cb
 
-    # timing at the scorer's shape: B=1, N_pad=512, k=512, float32, cosine
-    c = torch.from_numpy(rng.standard_normal((512, D)).astype(np.float32)).cuda()
-    qv = torch.from_numpy(rng.standard_normal((1, D)).astype(np.float32)).cuda()
-    t = {
-        "ms": cuda_ms(lambda: ops.distance_topk(qv, c, 512, "cosine"), 100),
-        "plain_ms": cuda_ms(lambda: ref.distance_topk_ref(qv, c, 512, "cosine"), 50),
-        "library_ms": cuda_ms(lambda: torch.topk(torch.mm(qv, c.T), 512, dim=1), 50),
-    }
-    t["bound_ms"], t["bound_by"] = topk_bound_ms(1, 512, 512)
-    res["topk"] = t
-    log(f"[kernels] distance_topk B=1 N_pad=512 D={D} f32 cosine k=512: {json.dumps(t)}")
+    # ---- the edges of both designs, then the planted distance faults
+    fails = distance_edges("real kernels")
+    assert not fails, "distance kernels disagree at their edges:\n" + "\n".join(fails)
+    log(f"[kernels] edges agree: grouped n_rows {edge_rows(ops.GROUPED_TILE)} at k=1/128/224/N (int8, float16), "
+        "ties across tiles in row order, full selection at N_pad 512/1024/5632 with zero pads and repeated "
+        "rows, back-to-back calls, finish counters at 0")
+    for name, fault in load_faults(fault_builds, "grouped_distance_topk").items():
+        with planted(fault):
+            seen = distance_edges(name)
+        counters_at_rest()
+        assert seen, f"the distance checks do not see the planted fault {name}"
+        log(f"[kernels] planted fault {name}: {len(seen)} checks fail, first: {seen[0][:300]}")
+
+    # ---- timing, four ways: G=128 units at a 455-row leaf, int8, cosine
+    G, N, k = 128, 455, 128
+    args = grouped_case(5, G, N, "int8", ragged=False)
+    q, codes, scales, offsets, n_rows = args
+    kern = lambda: ops.grouped_distance_topk_tensors(*args, k, "cosine", "int8")
+    # yardstick: decode, one batched product (inner-product scores), top-k
+    lib = lambda: torch.topk(torch.bmm(codes.float() * scales[:, None, None] + offsets[:, None, None],
+                                       q[:, :, None])[..., 0], k, dim=1)
+    g = four_ways(kern, lib, 50)
+    g["plain_ms"] = cuda_ms(lambda: ref.grouped_distance_topk_ref(*args, k, "cosine", "int8"), 20)
+    host = torch.empty(codes.numel(), dtype=torch.int8, pin_memory=True)
+    dev = torch.empty_like(codes).view(-1)
+    g["h2d_ms"] = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 20)
+    g["bound_ms"], g["bound_by"] = grouped_bound_ms(G, int(n_rows.sum()), k)
+    g["h2d_bytes"] = codes.numel()
+    res["grouped"] = g
+    log(f"[kernels] grouped_distance_topk G={G} N={N} D={D} int8 cosine k={k}: " + json.dumps(g))
+    del host, dev
+    # the main path's skew: one leaf of 5360 rows, 127 of 455, all padded to
+    # 5360 as the search pads a round
+    NS = 5360
+    big = torch.zeros((G, NS, D), dtype=torch.int8, device="cuda")
+    big[:, :N] = codes
+    big[0] = torch.randint(-128, 128, (NS, D), dtype=torch.int8, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(6))
+    nr = torch.full((G,), N, dtype=torch.int32, device="cuda")
+    nr[0] = NS
+    sargs = (q, big, scales, offsets, nr)
+    dk, ik = ops.grouped_distance_topk_tensors(*sargs, k, "cosine", "int8")
+    dp, ip = ref.grouped_distance_topk_ref(*sargs, k, "cosine", "int8")
+    res["grouped_err"] = max(res["grouped_err"], compare_topk("grouped skew", dk, ik, dp, ip))
+    slib = lambda: torch.topk(torch.bmm(big.float() * scales[:, None, None] + offsets[:, None, None],
+                                        q[:, :, None])[..., 0], k, dim=1)
+    sk = four_ways(lambda: ops.grouped_distance_topk_tensors(*sargs, k, "cosine", "int8"), slib, 20)
+    sk["bound_ms"], sk["bound_by"] = grouped_bound_ms(G, int(nr.sum()), k)
+    res["grouped_skew"] = sk
+    log(f"[kernels] grouped_distance_topk skew G={G} n_rows 5360 + 127 x 455 (padded to {NS}) int8 cosine k={k}: "
+        + json.dumps(sk))
+    del big, sargs, dp, ip
+    torch.cuda.empty_cache()
+
+    # ---- timing, four ways: the scorer's full selection, B=1, k=N_pad, f32, cosine
+    res["topk_by_n"] = {}
+    for n_pad in (512, 1024, 5632):
+        c = torch.from_numpy(rng.standard_normal((n_pad, D)).astype(np.float32)).cuda()
+        qv = torch.from_numpy(rng.standard_normal((1, D)).astype(np.float32)).cuda()
+        t = four_ways(lambda: ops.distance_topk(qv, c, n_pad, "cosine"),
+                      lambda: torch.topk(torch.mm(qv, c.T), n_pad, dim=1), 100)
+        t["plain_ms"] = cuda_ms(lambda: ref.distance_topk_ref(qv, c, n_pad, "cosine"), 50)
+        t["bound_ms"], t["bound_by"] = topk_bound_ms(1, n_pad, n_pad)
+        assert t["kernels_per_call"] == 1.0, f"distance_topk makes {t['kernels_per_call']} launches a call"
+        res["topk_by_n"][n_pad] = t
+        log(f"[kernels] distance_topk B=1 N_pad={n_pad} D={D} f32 cosine k={n_pad}: {json.dumps(t)}")
+    res["topk"] = res["topk_by_n"][512]
+    counters_at_rest()
 
 
 # ---------------------------------------------------------------- main path
@@ -358,7 +579,10 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     out["per_round_ms"] = {
         "search": out["search_s"] * 1e3 / max(1, bs.rounds),
         "stage": qt["stage_ms"] / n, "h2d": qt["h2d_ms"] / n, "kernel": qt["kernel_ms"] / n,
+        # the kernel's least time: the codes it reads (valid rows only) at the memory rate
+        "kernel_bound": qt["code_bytes"] / HBM_BYTES_PER_S * 1e3 / n,
         "rerank": qt["rerank_ms"] / n, "h2d_mb": qt["h2d_bytes"] / 1e6 / n,
+        "code_mb": qt["code_bytes"] / 1e6 / n,
     }
     assert bs.kernel_launches == launches["grouped_distance_topk"] > 0, (bs.kernel_launches, launches)
     assert launches["distance_topk"] > 0, launches
@@ -395,6 +619,10 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     out["fstore_bytes"] = sum(p.stat().st_size for p in fs.rglob("*") if p.is_file())
     res[tag] = out
     log(f"[{tag}] " + json.dumps(out))
+    pr = out["per_round_ms"]
+    log(f"[{tag}] grouped kernel a round: {pr['kernel']:.6f} ms against its bound {pr['kernel_bound']:.6f} ms "
+        f"({pr['code_mb']:.3f} MB of codes a round at {HBM_BYTES_PER_S / 1e12} TB/s; "
+        f"{pr['h2d_mb']:.3f} MB staged with the padding), {qt['rounds']} rounds")
     return {"blob": blob, "store": bst}
 
 
@@ -438,6 +666,7 @@ def scorer_on_index(bst, Q, res) -> None:
     block = torch.zeros((n_pad, D), dtype=torch.float32)
     block[:n] = torch.from_numpy(np.asarray(emb, np.float32))
     block, qv = block.cuda(), torch.from_numpy(Q[:1]).cuda()
+    ops_args = (qv, block, n_pad, "cosine")
     err = 0.0
     for metric in ("l2", "ip", "cosine"):
         dk, ik = ops.distance_topk(qv, block, n_pad, metric)
@@ -447,6 +676,55 @@ def scorer_on_index(bst, Q, res) -> None:
     res["topk_err"] = max(res["topk_err"], err)
     log(f"[main] distance_topk on the index's largest leaf ({n} rows, N_pad={n_pad}, k=N_pad): "
         f"l2/ip/cosine agree, max abs err {err:.3g}")
+    # one call of the leaf scorer, as the search makes it, under the profiler
+    from repro_torch.core import make_kernel_scorer
+
+    scorer = make_kernel_scorer()
+    call = lambda: scorer(Q[0], emb, "cosine")
+    call()
+    seen = []
+    for _ in range(16):
+        n0 = ops.launches["distance_topk"]
+        ks = bracketed_kernels(call, lambda: ops.distance_topk(*ops_args), "ecp::")
+        assert ops.launches["distance_topk"] - n0 == 4, "a scorer call is not one wrapper call"
+        if ks is None:
+            seen.append("markers lost")
+            continue
+        seen.append([e.name.split("(")[0] for e in ks])
+        # a dropped record can only hide a launch, never add one: no trace
+        # may show more than one, and one must show exactly one
+        assert len(ks) <= 1, f"one scorer call launched {len(ks)} kernels: {seen[-1]}"
+        if len(ks) == 1:
+            break
+    assert ks, f"no trace of a scorer call kept its kernel: {seen}"
+    res["scorer_call"] = {"kernels": len(ks), "kernel": seen[-1][0], "traces": len(seen),
+                          "device_ms": ks[0].time_range.elapsed_us() / 1e3, "rows": n}
+    log(f"[main] one leaf-scorer call on the largest leaf under torch.profiler: {len(ks)} CUDA kernel "
+        f"launch ({seen[-1][0]}, {res['scorer_call']['device_ms']:.6f} ms; {len(seen)} trace(s))")
+
+
+def bracketed_kernels(call, warm, prefix: str):
+    """The kernel records named ``prefix``... of one ``call``, from a trace
+    in which three ``warm`` calls come first (the profiler dropped records
+    of the port's kernels early in a trace on the H100) and one of
+    PyTorch's own kernels marks each side of the call; None if the trace
+    lost a marker."""
+    import torch
+
+    marker = torch.zeros(1, device="cuda")
+
+    def traced():
+        for _ in range(3):
+            warm()
+        marker.add_(1)
+        call()
+        marker.add_(1)
+
+    ks = sorted(traced_kernels(traced, 1), key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(ks) if prefix not in e.name]
+    if len(marks) != 2:
+        return None
+    return ks[marks[0] + 1 : marks[1]]
 
 
 # ------------------------------------------------------------ flash kernel
@@ -671,44 +949,55 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
 
 # ---------------------------------------------------------- planted faults
 def start_fault_builds(out: Path) -> dict:
-    """One nvcc process for each of FAULTS, on a copy of
-    csrc/<FAULT_SOURCE>.cu with that one change, all started at once."""
+    """One nvcc process for each of FAULTS, on a copy of its library's source
+    and of csrc/common.cuh in a directory of its own, with the one change,
+    all started at once."""
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / f"{FAULT_SOURCE}.cu").read_text()
     procs = {}
-    for name, (old, new) in FAULTS.items():
-        assert src.count(old) == 1, f"fault {name}: {old!r} is not once in {FAULT_SOURCE}.cu"
-        cu, so = out / f"{name}.cu", out / f"{name}.so"
-        cu.write_text(src.replace(old, new))
-        cmd = [_build.nvcc_path(), *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (source, changed, old, new) in FAULTS.items():
+        d = out / name
+        d.mkdir()
+        for f in (f"{source}.cu", "common.cuh"):
+            text = (_build.CSRC / f).read_text()
+            if f == changed:
+                assert text.count(old) == 1, f"fault {name}: {old!r} is not once in {f}"
+                text = text.replace(old, new)
+            (d / f).write_text(text)
+        so = d / f"{source}.so"
+        cmd = [_build.nvcc_path(), *_build.FLAGS, "-o", str(so), str(d / f"{source}.cu")]
+        procs[name] = (source, so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
 
-def load_faults(procs: dict) -> dict:
-    """Waits for the builds; name -> the loaded library."""
+def load_faults(procs: dict, source: str) -> dict:
+    """Waits for the builds of ``source``'s faults; name -> (source, the
+    loaded library)."""
     from repro_torch.kernels import _build
 
     libs = {}
-    for name, (so, p) in procs.items():
+    for name, (src, so, p) in procs.items():
+        if src != source:
+            continue
         out, _ = p.communicate()
         assert p.returncode == 0, f"nvcc of the planted fault {name} failed:\n{out}"
         cdll = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES[FAULT_SOURCE].items():
+        for fn, argtypes in _build.SIGNATURES[src].items():
             getattr(cdll, fn).argtypes = argtypes
             getattr(cdll, fn).restype = ctypes.c_int
-        libs[name] = cdll
+        libs[name] = (src, cdll)
     return libs
 
 
 @contextlib.contextmanager
-def planted(flib):
-    """The flash wrapper launches ``flib``'s kernel instead of the real one."""
+def planted(fault):
+    """The wrapper of the fault's library launches its planted kernel
+    instead of the real one."""
     from repro_torch.kernels import _build
 
+    source, flib = fault
     real = _build.lib
-    _build.lib = lambda name: flib if name == FAULT_SOURCE else real(name)
+    _build.lib = lambda name: flib if name == source else real(name)
     try:
         yield
     finally:
@@ -860,7 +1149,7 @@ def main() -> int:
     try:
         kernels = run_phases(res, args, fault_builds, t_all)
     finally:
-        for _, p in fault_builds.values():
+        for _, _, p in fault_builds.values():
             if p.poll() is None:
                 p.kill()
             p.wait()
@@ -875,7 +1164,7 @@ def main() -> int:
 
 def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     """Every phase in order; returns the kernels line's entries."""
-    phase_kernels(res)
+    phase_kernels(res, fault_builds)
     log(f"[kernels] phase done at {time.time() - t_all:.1f} s")
     from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, ecpfs_paper_full
     from repro_torch.data.synthetic import clustered_vectors
@@ -905,26 +1194,36 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
         log(f"[l2] phase done at {time.time() - t_all:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    fault_libs = load_faults(fault_builds)
+    fault_libs = load_faults(fault_builds, "flash_attention_wgmma")
     phase_flash(res, fault_libs)
     log(f"[flash] phase done at {time.time() - t_all:.1f} s")
     phase_lm(res, args.seed, fault_libs)
     log(f"[lm] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k = res["grouped"], res["topk"], res["flash_32k"]
+    four = ("device_ms", "library_device_ms", "kernels_per_call")
+    pr = res["main"]["per_round_ms"]
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/grouped.py:88",
          "launches": main_launches["grouped_distance_topk"],
          "max_abs_err": res["grouped_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
-         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": g["library_ms"]},
+         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+         **{a: g[a] for a in four}, "shape": "G=128 N=455 D=1152 int8 cosine k=128",
+         "skew": {**res["grouped_skew"], "shape": "G=128, n_rows 5360 + 127 x 455 padded to 5360, else the same"},
+         "main_path_per_round": {"kernel_ms": pr["kernel"], "bound_ms": pr["kernel_bound"],
+                                 "code_mb": pr["code_mb"], "rounds": res["main"]["quant_times"]["rounds"]}},
         {"name": "distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
          "launches": main_launches["distance_topk"],
          "max_abs_err": res["topk_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]},
+         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+         **{a: t[a] for a in four}, "shape": "B=1 N_pad=512 D=1152 f32 cosine k=512",
+         "by_n_pad": {n: {a: v[a] for a in ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")}
+                      for n, v in res["topk_by_n"].items()},
+         "scorer_call": res["scorer_call"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",

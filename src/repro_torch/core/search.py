@@ -414,9 +414,11 @@ class ECPIndex:
         self._stage = _PinnedStage(self.device)
         # the quantized scan's time, summed over rounds: filling the staging
         # buffer and the rerank on the host clock, the codes' host-to-device
-        # copy and the kernel on CUDA events (CUDA only; zero on the CPU)
+        # copy and the kernel on CUDA events (CUDA only; zero on the CPU);
+        # code_bytes: the codes the kernel reads (every unit's valid rows,
+        # not the padding), the bytes of its bound
         self.quant_times = {
-            "rounds": 0, "h2d_bytes": 0, "stage_ms": 0.0, "h2d_ms": 0.0,
+            "rounds": 0, "h2d_bytes": 0, "code_bytes": 0, "stage_ms": 0.0, "h2d_ms": 0.0,
             "kernel_ms": 0.0, "rerank_ms": 0.0,
         }
 
@@ -973,6 +975,7 @@ class ECPIndex:
         t["stage_ms"] += (time.perf_counter() - t0) * 1e3
         t["rounds"] += 1
         t["h2d_bytes"] += self._stage.nbytes
+        t["code_bytes"] += int(n_rows.sum()) * info.dim * codes.itemsize
         timed = self.device.type == "cuda"
         if timed:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]

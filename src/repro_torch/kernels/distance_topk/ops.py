@@ -5,11 +5,18 @@ plain PyTorch version (``ref.py``), tensors on a CUDA device launch the
 hand-written Hopper kernel (``csrc/*.cu``) or raise — there is no switch
 that sends CUDA tensors to the plain version.  ``launches`` counts, per op,
 the wrapper calls that launched their kernel (plain integers, bumped only
-there); ``reset_launches()`` zeroes them.  A call is one count although
-``distance_topk``'s full-selection path (k >= N) runs two CUDA kernels, the
-distances and then the per-row sort.
+there); ``reset_launches()`` zeroes them.  Every such call is exactly one
+CUDA launch.
+
+Both kernels finish their top-k in the last block of a group of blocks
+(found by an atomic counter that block resets), through keys in a scratch
+buffer.  The scratch and the counters are allocated once per device
+and stream and grow when a call needs more (``workspace``); the
+shared-memory opt-in is read once per device.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -52,13 +59,101 @@ def _on_one_cuda_device(*ts: torch.Tensor) -> bool:
     return True
 
 
-def _smem_rows(optin: int, D: int) -> int:
-    """Largest power of two of 8-byte keys that fits next to the query."""
-    room = optin - (-(-D * 4 // 16) * 16)
-    p = 1
-    while p * 2 * 8 <= room:
-        p *= 2
-    return p if p * 8 <= room else 0
+# rows of a leaf one block of the grouped kernel scores (kTile in
+# csrc/grouped_distance_topk.cu, which checks it)
+GROUPED_TILE = 256
+
+_optin: dict = {}       # device index -> largest opt-in shared memory (bytes)
+workspaces: dict = {}   # (device index, stream) -> (key lists [bytes] uint8, counters int32)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+# rows one block of the full-selection path scores (kFullRows in
+# csrc/distance_topk.cu: two a warp of 16)
+FULL_ROWS = 32
+
+
+def topk_full_plan(N: int, D: int, optin: int) -> int:
+    """The full-selection path's blocks per query row (FULL_ROWS rows
+    each).  Raises when the last block's sort of the row's keys (pow2 of
+    the blocks' rows, 8 bytes a key) or a block's query row does not fit in
+    ``optin`` bytes of shared memory."""
+    nblk = max(1, -(-N // FULL_ROWS))
+    keys = _pow2(nblk * FULL_ROWS) if nblk > 1 else 0
+    if keys * 8 > optin:
+        raise ValueError(
+            f"distance_topk full selection sorts {keys} keys ({keys * 8} B) in one block's shared memory, "
+            f"more than the {optin} B a block may have: N={N} is too large"
+        )
+    if _align16(D * 4) > optin:
+        raise ValueError(f"distance_topk: a query row of D={D} does not fit in {optin} B of shared memory")
+    return nblk
+
+
+def grouped_plan(N: int, D: int, k: int, itemsize: int, optin: int) -> tuple[int, int]:
+    """The grouped kernel's (tiles per group, keys kept per tile P =
+    min(pow2(k), GROUPED_TILE)).  Raises when a block's query, tile keys and
+    2-stage ring (16 rows of int8, 8 of float16) do not fit in ``optin``
+    bytes of shared memory, or when the last tile's merge does not: it
+    merges the pow2(tiles) lists of P keys in the tile's own shared memory
+    (at once, or in batches behind a running list of pow2(k) keys) and only
+    needs more when pow2(k) is over half of that."""
+    tiles = max(1, -(-N // GROUPED_TILE))
+    P, cap = min(_pow2(k), GROUPED_TILE), _pow2(k)
+    ring = 2 * 16 * D if itemsize == 1 else 2 * 8 * D * itemsize
+    tile = _align16(D * 4) + GROUPED_TILE * 8 + ring
+    if 128 + tile > optin:
+        raise ValueError(
+            f"grouped_distance_topk: a block's query, tile keys and ring take {128 + tile} B of shared "
+            f"memory at D={D}, more than the {optin} B a block may have"
+        )
+    merge = _pow2(tiles) * P * 8
+    if merge > tile and tile // 8 - cap >= cap:
+        merge = 0  # batches behind a running list, in the tile's shared memory
+    if 128 + merge > optin:
+        raise ValueError(
+            f"grouped_distance_topk merges {_pow2(tiles)} tile lists of {P} keys ({128 + merge} B of shared "
+            f"memory) at N={N}, k={k}, more than the {optin} B a block may have"
+        )
+    return tiles, P
+
+
+def workspace(device: torch.device, key_bytes: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scratch key lists and zeroed counters for launches on ``device``'s
+    current stream, kept and reused; grown (anew, zeroed) when too small.
+    The kernels leave every counter at 0."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws = workspaces.get(key)
+    if ws is None or ws[0].numel() < key_bytes or ws[1].numel() < counters:
+        old_b, old_c = (ws[0].numel(), ws[1].numel()) if ws is not None else (0, 0)
+        ws = (torch.empty(max(key_bytes, old_b, 1 << 20), dtype=torch.uint8, device=device),
+              torch.zeros(max(counters, old_c, 1024), dtype=torch.int32, device=device))
+        workspaces[key] = ws
+    return ws
+
+
+def _device_optin(lib, fn: str, device: torch.device) -> int:
+    if device.index not in _optin:
+        with torch.cuda.device(device):
+            _optin[device.index] = getattr(lib, fn)()
+    return _optin[device.index]
+
+
+@contextlib.contextmanager
+def _on(device: torch.device):
+    """Launch on ``device``: enter it only when it is not the current one."""
+    if device.index == torch.cuda.current_device():
+        yield
+    else:
+        with torch.cuda.device(device):
+            yield
 
 
 def distance_topk(q, c, k: int, metric: str = "l2"):
@@ -66,7 +161,8 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
     taken as CPU) -> (dists [B, k] float32, idx [B, k] int32) tensors on
     the inputs' device, ascending, ties to the lower index; entries with no
     candidate are (inf, -1).  k >= N takes the kernel's full-selection path
-    (distances, then one sort per row)."""
+    (one launch: blocks of rows sort their keys, the last block of a query
+    row finishes the sort of them all)."""
     q, c = _as_tensor(q), _as_tensor(c)
     m = _metric(metric)
     if q.ndim != 2 or c.ndim != 2 or q.shape[1] != c.shape[1]:
@@ -80,24 +176,24 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
     lib = _build.lib("distance_topk")
     B, D = q.shape
     N = c.shape[0]
-    optin = lib.distance_topk_smem_optin()
-    if k >= N:  # full selection: one row's keys, nothing else, in shared memory
-        cap = _smem_rows(optin, 0)
-        if N > cap:
-            raise ValueError(f"distance_topk full selection sorts at most {cap} candidates in shared memory, got N={N}")
+    dev = q.device
+    optin = _device_optin(lib, "distance_topk_smem_optin", dev)
+    nblk = 0
+    if k >= N:  # full selection: one launch, the last block of a row sorts
+        nblk = topk_full_plan(N, D, optin)
     else:  # running top-k: query + 2 * max(pow2(k), 256) keys
-        keys = 2 * max(1 << (k - 1).bit_length(), 256)
-        if keys > _smem_rows(optin, D):
+        keys = 2 * max(_pow2(k), 256)
+        if _align16(D * 4) + keys * 8 > optin:
             raise ValueError(f"distance_topk k={k} needs {keys} shared-memory keys, more than fit at D={D}")
     q, c = q.contiguous(), c.contiguous()
-    out_d = torch.empty((B, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
-    scratch = torch.empty((B * N if k >= N else 0,), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    keys, counters = workspace(dev, B * nblk * FULL_ROWS * 8, B)
+    with _on(dev):
         err = lib.distance_topk_launch(
-            q.data_ptr(), c.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), scratch.data_ptr(),
-            B, N, D, int(k), m, DTYPE_CODE[q.dtype], stream,
+            q.data_ptr(), c.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), keys.data_ptr(),
+            counters.data_ptr(), B, N, D, int(k), m, DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "distance_topk")
     launches["distance_topk"] += 1
@@ -138,25 +234,23 @@ def grouped_distance_topk_tensors(
     if codes.dtype != QFORMAT_DTYPE[qformat]:
         raise TypeError(f"codes must be {QFORMAT_DTYPE[qformat]} for qformat {qformat!r}, got {codes.dtype}")
     lib = _build.lib("grouped_distance_topk")
-    rows = _smem_rows(lib.grouped_smem_optin(), D)
-    if N > rows:
-        raise ValueError(
-            f"grouped_distance_topk holds at most {rows} rows of a leaf in shared memory "
-            f"at D={D}; this round's largest leaf has {N}"
-        )
+    dev = q.device
+    tiles, P = grouped_plan(N, D, k, codes.element_size(),
+                            _device_optin(lib, "grouped_smem_optin", dev))
     q = q.to(torch.float32).contiguous()
     codes = codes.contiguous()
     scales = scales.to(torch.float32).contiguous()
     offsets = offsets.to(torch.float32).contiguous()
     n_rows = n_rows.to(torch.int32).contiguous()
-    out_d = torch.empty((G, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((G, k), dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    out_d = torch.empty((G, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((G, k), dtype=torch.int32, device=dev)
+    lists, counters = workspace(dev, G * tiles * P * 8, G)
+    with _on(dev):
         err = lib.grouped_distance_topk_launch(
             q.data_ptr(), codes.data_ptr(), scales.data_ptr(), offsets.data_ptr(),
-            n_rows.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            G, N, D, int(k), m, QFORMAT_CODE[qformat], stream,
+            n_rows.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), lists.data_ptr(),
+            counters.data_ptr(), G, N, D, int(k), m, QFORMAT_CODE[qformat], GROUPED_TILE,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "grouped_distance_topk")
     launches["grouped_distance_topk"] += 1

@@ -111,7 +111,7 @@ def test_causal_row_block_equals_the_whole_call(i0):
 
 
 def test_planted_faults_match_the_kernel_source():
-    """Each fault chip_smoke.py plants is one change at one place of the
+    """Each fault chip_smoke.py plants is one change at one place of a
     kernel's source; an edit of the source that moves it fails here."""
     import importlib.util
     from pathlib import Path
@@ -120,11 +120,12 @@ def test_planted_faults_match_the_kernel_source():
     spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.FAULT_SOURCE == "flash_attention_wgmma"  # the kernel the prefill runs
-    src = (root / f"src/repro_torch/csrc/{smoke.FAULT_SOURCE}.cu").read_text()
-    assert smoke.FAULTS
-    for old, new in smoke.FAULTS.values():
-        assert src.count(old) == 1 and old != new
+    csrc = root / "src/repro_torch/csrc"
+    flash = [f for f in smoke.FAULTS.values() if f[0].startswith("flash")]
+    assert flash and all(f[0] == "flash_attention_wgmma" for f in flash)  # the kernel the prefill runs
+    for library, changed, old, new in smoke.FAULTS.values():
+        assert (csrc / f"{library}.cu").is_file()
+        assert (csrc / changed).read_text().count(old) == 1 and old != new
 
 
 def test_cpu_dispatch_takes_the_plain_version_and_counts_no_launch():

@@ -228,3 +228,53 @@ def test_kernel_build_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     assert t.parent == tmp_path and t.name.startswith("grouped_distance_topk-") and t.suffix == ".so"
     assert t != _build._target("distance_topk")
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+# ------------------------------------------------------ launch plans, limits
+OPTIN = 232448  # an H100 block's largest opt-in shared memory (bytes)
+
+
+@pytest.mark.parametrize("N,nblk", [(0, 1), (1, 1), (512, 16), (1024, 32), (5632, 176), (16384, 512)])
+def test_full_selection_plan(N, nblk):
+    """32 rows a block; the scorer's N_pad from 512 to 5632 and up to 16384
+    fit."""
+    assert ops.topk_full_plan(N, 1152, OPTIN) == nblk
+
+
+def test_full_selection_limits_raise():
+    with pytest.raises(ValueError, match=r"full selection sorts 32768 keys \(262144 B\) .* N=16385 is too large"):
+        ops.topk_full_plan(16385, 1152, OPTIN)
+    with pytest.raises(ValueError, match=r"a query row of D=60000 does not fit"):
+        ops.topk_full_plan(512, 60000, OPTIN)
+
+
+@pytest.mark.parametrize(
+    "N,k,itemsize,plan",
+    [
+        (455, 128, 1, (2, 128)),
+        (5360, 128, 1, (21, 128)),
+        (5360, 5360, 1, (21, 256)),
+        (455, 1, 1, (2, 1)),
+        (200, 48, 2, (1, 64)),
+        (60000, 16, 1, (235, 16)),
+        (60000, 224, 1, (235, 256)),  # k <= 256: batches behind a running list, no cap on N
+    ],
+)
+def test_grouped_plan(N, k, itemsize, plan):
+    assert ops.grouped_plan(N, 1152, k, itemsize, OPTIN) == plan
+
+
+def test_grouped_limits_raise():
+    with pytest.raises(ValueError, match=r"merges 128 tile lists of 256 keys \(262272 B of shared memory\) at N=20000, k=20000"):
+        ops.grouped_plan(20000, 1152, 20000, 1, OPTIN)
+    ops.grouped_plan(20000, 1152, 128, 1, OPTIN)  # a small k merges in batches
+    with pytest.raises(ValueError, match=r"query, tile keys and ring take .* at D=8192"):
+        ops.grouped_plan(455, 8192, 128, 2, OPTIN)
+
+
+def test_sources_and_signatures_are_the_csrc_files():
+    stems = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert set(_build.SOURCES) == stems == set(_build.SIGNATURES)
+    # one pointer each for the scratch keys and the counters (and the grouped kernel's tile)
+    assert len(_build.SIGNATURES["distance_topk"]["distance_topk_launch"]) == 13
+    assert len(_build.SIGNATURES["grouped_distance_topk"]["grouped_distance_topk_launch"]) == 17

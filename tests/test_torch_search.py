@@ -128,6 +128,29 @@ def test_launches_go_through_the_late_kernel_lookup(ref_blob, monkeypatch):
     assert t["h2d_ms"] == t["kernel_ms"] == 0.0  # CUDA events, on the card only
 
 
+def test_code_bytes_count_the_rows_each_round_reads(ref_blob, monkeypatch):
+    """quant_times["code_bytes"] is the sum over rounds of n_rows[g] * D *
+    itemsize: the codes the grouped kernel reads, without the padding to
+    the round's largest leaf that the staging copy carries."""
+    _, blob, Q = ref_blob
+    rounds = []
+    real = ops.grouped_distance_topk_tensors
+
+    def recording(*a, **kw):
+        codes, n_rows = a[1], a[4]
+        rounds.append((int(n_rows.sum()) * codes.shape[2] * codes.element_size(), codes.numel()))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "grouped_distance_topk_tensors", recording)
+    idx = open_index(blob, mode="file", quantized=True, device="cpu")
+    rs = idx.search(Q, K, b=B_EXP)
+    rs.query.next(K)
+    t = idx.quant_times
+    assert len(rounds) == t["rounds"] > 1
+    assert t["code_bytes"] == sum(r for r, _ in rounds) > 0
+    assert t["code_bytes"] < sum(padded for _, padded in rounds)  # ragged leaves pad
+
+
 def test_kernel_scorer_agrees_with_the_reference(ref_blob):
     metric, blob, Q = ref_blob
     ours = make_kernel_scorer(min_rows=8, bucket=32, device="cpu")
