@@ -36,6 +36,32 @@ Phases, none of whose failures is caught:
    Then holds both kernels against their plain versions at the largest
    shapes the built index gives them (its largest leaves), and traces one
    leaf-scorer call: one CUDA kernel launch.
+   Then, before the main phase's files go:
+3b. serve: the serving path (``launch/serve.py``'s ``Server``) on the same
+   200k collection.  (a) Interactive: the int8 v3 blob opened
+   ``quantized=True``, 16 single-query searches (k=100, b=64) and 8
+   ``more(100)``, each bit-identical to the fp engine; the grouped
+   kernel's launches counted from 0.  (b) The write path: insert 2000
+   near-duplicates of the items of 8 leaves (each found at rank 0 for its
+   own vector by packed mode over the mutated blob), delete 1000 ids (none
+   comes back from the fp engine), compact; every search after it is
+   bit-identical to a fresh build (fstore) of the live items; prints the
+   bytes written.  (c) ``Server(workers=4, queue_depth=32)``: 32 requests
+   with a deadline (four times (a)'s p99 behind a full queue), 12 before,
+   12 while and 8 after a writer inserts 100 near-duplicates into one
+   leaf; all run at b=64, at least two generations are served (the first
+   request's and, after the commit, the last 8), and each result equals a
+   single-threaded search of its snapshot at the effort the scheduler
+   chose.  (d) ``open_index(fstore)`` with no mode is packed mode on the
+   card: 128 queries (k=100, b=64, b_internal the root's width) then
+   ``more(100)``, held against a host scan of the same ranked leaves (32
+   queries), ``next(100)`` against ranks 100-199 of a k=200 search, and,
+   with every leaf scanned, against the file-mode fp engine (8 queries; at
+   b=64 the two traversals open different leaves); asserts the scan's
+   peak device memory beyond the resident index.  A packed searcher on an
+   index of repeated rows keeps ties in index order; a copy whose top-k
+   puts ties against index order (planted) must fail that check, and a
+   copy on ``torch.topk`` (no promised tie order) is reported.
 4. l2: the same steps at a smaller collection with metric l2.
 5. flash: holds the flash-attention kernels against their plain version
    on the card, by element and by row (the six cases of
@@ -396,6 +422,61 @@ def distance_edges(tag: str) -> list[str]:
     return fails
 
 
+def threads_on_one_stream() -> int:
+    """4 threads launch both distance kernels on the default stream they
+    share (as the serving scheduler's workers do), at shapes that grow the
+    one (device, stream) workspace while other threads hold it: each result
+    must be bit-identical to the same call run alone.  Returns the number of
+    threaded calls compared."""
+    import threading
+
+    import torch
+    from repro_torch.kernels.distance_topk import ops
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    calls = []
+    for G, N, k in ((128, 455, 128), (128, 5360, 128), (256, 2048, 256), (1500, 300, 64)):
+        args = (torch.randn(G, D, generator=g, device="cuda"),
+                torch.randint(-128, 128, (G, N, D), generator=g, device="cuda", dtype=torch.int8),
+                torch.rand(G, generator=g, device="cuda") * 0.01 + 1e-3,
+                torch.randn(G, generator=g, device="cuda") * 0.01,
+                torch.randint(0, N + 1, (G,), generator=g, device="cuda", dtype=torch.int32))
+        calls.append((ops.grouped_distance_topk_tensors, (*args, k, "cosine", "int8")))
+    for B, N, k in ((1, 5632, 5632), (2048, 512, 512), (16, 4096, 100)):
+        calls.append((ops.distance_topk, (torch.randn(B, D, generator=g, device="cuda"),
+                                          torch.randn(N, D, generator=g, device="cuda"), k, "l2")))
+    ops.workspaces.clear()
+    alone = [fn(*a) for fn, a in calls]
+    torch.cuda.synchronize()
+    ops.workspaces.clear()  # small again: the threads grow it under each other
+    got, errors = {}, []
+
+    def worker(t):
+        try:
+            for rep in range(3):
+                for i in range(t, len(calls), 4):
+                    fn, a = calls[i]
+                    got[(rep, i)] = fn(*a)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads), "a kernel thread did not finish in 300 s"
+    assert not errors, errors
+    assert len(got) == 3 * len(calls), len(got)
+    for (rep, i), (d, idx) in got.items():
+        assert torch.equal(d, alone[i][0]) and torch.equal(idx, alone[i][1]), \
+            f"threaded call {i} (rep {rep}) differs from the same call run alone"
+    assert len(ops.workspaces) == 1, list(ops.workspaces)
+    counters_at_rest()
+    return len(got)
+
+
 def phase_kernels(res: dict, fault_builds: dict) -> None:
     import torch
     from repro_torch.kernels import _build
@@ -468,6 +549,9 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
     log(f"[kernels] edges agree: grouped n_rows {edge_rows(ops.GROUPED_TILE)} at k=1/128/224/N (int8, float16), "
         "ties across tiles in row order, full selection at N_pad 512/1024/5632 with zero pads and repeated "
         "rows, back-to-back calls, finish counters at 0")
+    n_thr = threads_on_one_stream()
+    log(f"[kernels] 4 threads on the default stream, one shared workspace grown under them: {n_thr} calls "
+        "bit-identical to the same calls run alone")
     for name, fault in load_faults(fault_builds, "grouped_distance_topk").items():
         with planted(fault):
             seen = distance_edges(name)
@@ -623,7 +707,7 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     log(f"[{tag}] grouped kernel a round: {pr['kernel']:.6f} ms against its bound {pr['kernel_bound']:.6f} ms "
         f"({pr['code_mb']:.3f} MB of codes a round at {HBM_BYTES_PER_S / 1e12} TB/s; "
         f"{pr['h2d_mb']:.3f} MB staged with the padding), {qt['rounds']} rounds")
-    return {"blob": blob, "store": bst}
+    return {"blob": blob, "store": bst, "fs": fs, "fp_ids": frs.ids}
 
 
 def grouped_on_index(bst, Q, res) -> None:
@@ -725,6 +809,336 @@ def bracketed_kernels(call, warm, prefix: str):
     if len(marks) != 2:
         return None
     return ks[marks[0] + 1 : marks[1]]
+
+
+# ------------------------------------------------------------------ serve
+def bytes_written() -> int | None:
+    """Bytes this process has passed to write calls (``wchar`` of
+    ``/proc/self/io``: every ``write``/``pwrite``, page cache or not; the
+    storage layer's own ``write_bytes`` reads 0 on the chip machine)."""
+    try:
+        for line in Path("/proc/self/io").read_text().splitlines():
+            if line.startswith("wchar:"):
+                return int(line.split()[1])
+    except OSError:
+        return None
+    return None
+
+
+def same_rs(what: str, a, b) -> None:
+    assert np.array_equal(a.ids, b.ids) and np.array_equal(a.dists, b.dists), f"{what}: results differ"
+
+
+def ties_in_index_order(what: str, rs, copies: int) -> None:
+    """Equal distances keep index order: in every run of equal distances
+    the ids ascend (each vector's ``copies`` copies hold consecutive ids,
+    next to each other in one leaf, and tie exactly)."""
+    d, ids = rs.dists, rs.ids
+    for r in range(len(d)):
+        for j in range(1, d.shape[1]):
+            if d[r, j] == d[r, j - 1]:
+                assert ids[r, j] > ids[r, j - 1], f"{what}: row {r} pos {j}: tie out of index order"
+
+
+def topk_by_distance(d, ids, k):
+    """``torch.topk``: a top-k by distance alone, whose order among ties
+    PyTorch does not promise."""
+    import torch
+
+    v, order = torch.topk(d, k, dim=-1, largest=False, sorted=True)
+    return v, torch.gather(ids, -1, order)
+
+
+def planted_topk(d, ids, k):
+    """The planted fault: a top-k whose ties come out against index order
+    (the last index first), by a stable sort of the reversed row."""
+    import torch
+
+    n = d.shape[-1]
+    order = (n - 1) - torch.sort(d.flip(-1), dim=-1, stable=True).indices[..., :k]
+    return torch.gather(d, -1, order), torch.gather(ids, -1, order)
+
+
+def packed_tie_check(work: Path, seed: int, res: dict) -> None:
+    """The packed searcher keeps equal distances in index order on an index
+    of repeated rows at the paper's width; a copy whose top-k breaks ties
+    by distance alone (the planted fault) must fail the same check."""
+    from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, build_cfg
+    from repro_torch.core import BatchedSearcher, build_index, load_packed
+    from repro_torch.data.synthetic import clustered_vectors
+
+    copies = 4
+    base, _ = clustered_vectors(seed + 5, n=1024 + 16, dim=D)
+    data = np.repeat(base[:1024], copies, axis=0)
+    fs = work / "ties_fs"
+    build_index(data, str(fs), build_cfg(ECPFSPaperConfig(n_items=len(data))))
+    packed = load_packed(str(fs))
+    Qt = base[1024:]
+    good = BatchedSearcher(packed)
+    rs = good.search(Qt, 40, b=4)
+    groups = rs.dists.reshape(len(Qt), -1, copies)
+    exact = float(np.mean(np.all(groups == groups[..., :1], axis=-1)))
+    assert exact == 1.0, f"the copies' distances do not tie exactly ({exact:.3f} of groups do)"
+    ties_in_index_order("packed ties", rs, copies)
+    found = {}
+    for name, topk in (("torch.topk", topk_by_distance), ("planted", planted_topk)):
+        other = BatchedSearcher(packed)
+        other._topk = topk
+        try:
+            ties_in_index_order(name, other.search(Qt, 40, b=4), copies)
+            found[name] = False
+        except AssertionError as e:
+            found[name] = str(e)
+        del other
+    assert found["planted"], "the planted tie fault (ties against index order) passed the tie check"
+    res["serve"]["ties"] = {"groups_tied": exact, **found}
+    log(f"[serve] packed tie check on {len(data)} rows ({copies} copies each, dim {D}): ties in index "
+        f"order; planted fault (ties against index order) seen: {found['planted']}; a copy on "
+        f"torch.topk (no promised tie order) broke it here: {found['torch.topk']}")
+    shutil.rmtree(fs)
+
+
+def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> None:
+    """The serving path of ``launch/serve.py`` on the main phase's 200k
+    collection, through ``Server``: (a) interactive quantized file mode,
+    (b) the write path, (c) the 4-worker scheduler over snapshots while a
+    writer inserts, (d) the batched server, packed mode on the card."""
+    import threading
+
+    import torch
+    from repro_torch.configs.ecpfs_paper import build_cfg
+    from repro_torch.core import BatchedSearcher, build_index, open_index
+    from repro_torch.kernels.distance_topk import ops
+    from repro_torch.launch.serve import Server
+
+    out = res.setdefault("serve", {})
+    blob, fs, bst = built["blob"], built["fs"], built["store"]
+    L, k, b = cfg.levels, cfg.k, cfg.b
+    w0 = bytes_written()
+    rng = np.random.default_rng(seed + 7)
+    t_phase = time.perf_counter()
+
+    # ---------------- (a) interactive: single requests, quantized, on the card
+    fp = open_index(str(blob), mode="file")          # the port's fp engine, same file
+    srv = Server(open_index(str(blob), mode="file", quantized=True))
+    ops.reset_launches()
+    sess = []
+    for r in range(16):
+        rs, sid = srv.search(Q[r], k=k, b=b)
+        sess.append((sid, rs))
+    more = [srv.more(sid, k) for sid, _ in sess[:8]]
+    out["interactive_launches"] = dict(ops.launches)
+    for r, (sid, rs) in enumerate(sess):
+        f = fp.search(Q[r], k, b=b)
+        same_rs(f"serve (a) search {r}", rs, f)
+        if r < 8:
+            same_rs(f"serve (a) more {r}", more[r], f.query.next(k))
+        srv.close(sid)
+    assert out["interactive_launches"]["grouped_distance_topk"] > 0, out["interactive_launches"]
+    out["interactive"] = srv.stats.summary()
+    out["part_s"] = {"a": time.perf_counter() - t_phase}
+    log(f"[serve] (a) 16 searches + 8 more(100), bit-identical to the fp engine; launches "
+        f"{out['interactive_launches']}; {json.dumps(out['interactive'])}")
+
+    # ---------------- (b) the write path: insert, delete, compact
+    n0 = len(data)
+    rows = bst._n_rows[L]
+    pick = rng.choice([j for j in range(len(rows)) if rows[j] >= 250], 8, replace=False)
+    src_ids = np.concatenate([bst.get_node_ids(L, int(j))[:250] for j in pick])
+    # near-duplicates close enough to route to their originals' 8 leaves:
+    # every node write rewrites a whole slot of the blob (the largest
+    # leaf's stride, 24.8 MB), so an insert spread over the index writes
+    # 5-6 MB an item (190 leaves and 261 splits for 2000 items at 0.01)
+    new = (data[src_ids] + 0.001 * rng.standard_normal((len(src_ids), D))).astype(np.float32)
+    new_ids = np.arange(n0, n0 + len(new))
+    steps = {}  # seconds of each step of (b)
+    t0 = time.perf_counter()
+    ins = srv.insert(new, new_ids)
+    out["insert_s"] = steps["insert"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # each at rank 0 for its own vector: packed mode over the mutated blob
+    # (no tombstones yet), 128 queries a call, b and b_internal as in (d);
+    # the host engines take 1-2 minutes for 2000 queries at b=64
+    pk = open_index(str(blob), mode="packed")
+    top = np.concatenate([
+        pk.search(new[i : i + 128], k=1, b=b, b_internal=pk.info.nodes_per_level[0]).ids
+        for i in range(0, len(new), 128)
+    ])
+    del pk
+    torch.cuda.empty_cache()
+    found = float(np.mean(top[:, 0] == new_ids))
+    assert found == 1.0, f"only {found:.4f} of the inserted items come back at rank 0 for their own vector"
+    steps["rank0_check"] = time.perf_counter() - t0
+    del_ids = np.concatenate([rng.choice(new_ids, 500, replace=False),
+                              rng.choice(np.setdiff1d(np.arange(n0), src_ids), 500, replace=False)])
+    t0 = time.perf_counter()
+    n_del = srv.delete(del_ids)
+    out["delete_s"] = steps["delete"] = time.perf_counter() - t0
+    assert n_del == 1000, n_del
+    t0 = time.perf_counter()
+    vecs = np.concatenate([data, new])
+    reader = open_index(str(blob), mode="file")  # the fp engine, a reader of the same file
+    rs = reader.search(vecs[del_ids], k=10, b=8)
+    assert not np.isin(rs.ids, del_ids).any(), "a deleted id came back"
+    reader.close()
+    steps["deleted_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comp = srv.compact()
+    out["compact_s"] = steps["compact"] = time.perf_counter() - t0
+    live = np.ones(n0 + len(new), bool)
+    live[del_ids] = False
+    stored = vecs.astype(np.float16).astype(np.float32)
+    fresh = work / "fresh_fs"
+    t0 = time.perf_counter()
+    build_index(stored[live], str(fresh), build_cfg(cfg), item_ids=np.flatnonzero(live))
+    out["fresh_build_s"] = steps["fresh_build"] = time.perf_counter() - t0
+    del stored
+    t0 = time.perf_counter()
+    ffp = open_index(str(fresh), mode="file")
+    for r in range(16):
+        rs, sid = srv.search(Q[r], k=k, b=b)
+        f = ffp.search(Q[r], k, b=b)
+        same_rs(f"serve (b) after compact, search {r}", rs, f)
+        if r < 4:
+            same_rs(f"serve (b) after compact, more {r}", srv.more(sid, k), f.query.next(k))
+        srv.close(sid)
+    steps["after_compact_check"] = time.perf_counter() - t0
+    w1 = bytes_written()
+    out["write_path"] = {"insert": ins, "deleted": n_del, "compact": comp, "rank0_found": found,
+                         "bytes_written": None if w0 is None else w1 - w0, "step_s": steps}
+    log(f"[serve] (b) insert {len(new)} ({out['insert_s']:.3f} s, {ins['splits']} splits, {ins['leaves']} leaves), "
+        f"each at rank 0 for its own vector; delete 1000 ({out['delete_s']:.3f} s), none comes back; "
+        f"compact {out['compact_s']:.3f} s {comp}; 16 searches + 4 more after it bit-identical to a fresh "
+        f"build of the live items ({out['fresh_build_s']:.3f} s); bytes written by (a)-(b): "
+        f"{out['write_path']['bytes_written']}; seconds by step {json.dumps(steps)}")
+    srv.shutdown()
+    shutil.rmtree(fresh)
+    out["part_s"]["b"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+
+    # ---------------- (c) concurrent: 4 workers over snapshots while a writer inserts
+    csrv = Server(open_index(str(blob), mode="file", quantized=True), workers=4, queue_depth=32)
+    # 100 near-duplicates of the items of one leaf of the compacted tree
+    st = csrv.searcher.store
+    rows = st.node_rows([(L, j) for j in range(csrv.searcher.info.nodes_per_level[-1])])
+    fits = [j for j, n in enumerate(rows) if 100 <= n <= cfg.cluster_cap - 100]
+    j0 = fits[0] if fits else int(np.argmax(rows))
+    more_new = (vecs[st.get_node_ids(L, j0)[:100]] + 0.001 * rng.standard_normal((100, D))).astype(np.float32)
+    base_id = int(csrv.searcher.info.next_id)
+    gen0 = int(csrv.searcher.info.generation)
+    # a deadline that (a)'s slowest request fits into four times over behind
+    # a full queue (32 requests on 4 workers): every request runs at b
+    deadline_ms = 4.0 * out["interactive"]["search_p99_ms"] * (32 // 4 + 1)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    submit = lambda r: csrv.scheduler.submit(Q[r], k, b=b, deadline_ms=deadline_ms)
+    futs = [submit(r) for r in range(12)]
+    futs[0].result(timeout=300)  # one request has leased generation gen0 before the insert starts
+    writer = threading.Thread(target=lambda: csrv.insert(more_new, np.arange(base_id, base_id + 100)))
+    writer.start()
+    futs += [submit(r) for r in range(12, 24)]  # while the insert runs
+    writer.join(timeout=300)
+    assert not writer.is_alive(), "the insert under the workers did not finish in 300 s"
+    futs += [submit(r) for r in range(24, 32)]  # after it committed
+    got = [f.result(timeout=300) for f in futs]
+    out["concurrent_s"] = time.perf_counter() - t0
+    out["concurrent_launches"] = dict(ops.launches)
+    gen1 = int(csrv.searcher.info.generation)
+    gens = {}
+    for r, g in enumerate(got):
+        again = g.lease.search(Q[r], k, b=g.b_effective)
+        same_rs(f"serve (c) request {r} (generation {g.lease.generation}, b {g.b_effective})", g.rs, again)
+        gens[g.lease.generation] = gens.get(g.lease.generation, 0) + 1
+        g.lease.release()
+    assert out["concurrent_launches"]["grouped_distance_topk"] > 0, out["concurrent_launches"]
+    assert all(g.b_effective == b for g in got), f"requests ran below b={b}: {[g.b_effective for g in got]}"
+    assert gen1 > gen0 and got[0].lease.generation == gen0, (gen0, gen1, gens)
+    assert all(g.lease.generation == gen1 for g in got[24:]), gens
+    out["concurrent"] = {"scheduler": csrv.scheduler.stats.as_dict(), "generations": gens,
+                         "deadline_ms": deadline_ms, "b_effective": sorted({g.b_effective for g in got}),
+                         "latency_ms": [g.queue_wait_ms for g in got]}
+    log(f"[serve] (c) 32 requests on 4 workers in {out['concurrent_s']:.3f} s while 100 items were inserted "
+        f"(12 before, 12 during, 8 after the insert), deadline {deadline_ms:.1f} ms: all at b={b}; each equals "
+        f"a single-threaded search of its snapshot; generations {gens} (before {gen0}, after {gen1}); launches "
+        f"{out['concurrent_launches']}; scheduler {json.dumps(out['concurrent']['scheduler'])}")
+    csrv.shutdown()
+    out["part_s"]["c"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+
+    # ---------------- (d) batched: open_index(fs) with no mode is packed mode on the card
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs = open_index(str(fs))
+    torch.cuda.synchronize()
+    out["packed_load_s"] = time.perf_counter() - t0
+    assert isinstance(bs, BatchedSearcher) and bs.device.type == "cuda", type(bs)
+    w = bs.info.nodes_per_level[0]
+    n_leaves = bs.info.nodes_per_level[-1]
+    bsrv = Server(bs)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rs, sid = bsrv.search(Q, k=k, b=b, b_internal=w)
+    out["batched_search_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nx = bsrv.more(sid, k)
+    out["batched_more_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    cap = bs.leaf.emb.shape[1]
+    C = max(4 * k, 256)
+    # the scan's own memory: one leaf block (the budget), the chunk's
+    # distances, ids and mask, and the merge's inputs, sort and outputs
+    limit = bs.scan_budget_bytes + 8 * len(Q) * (C + b * cap) * 8
+    out["batched_launches"] = dict(ops.launches)
+    assert peak <= limit, f"the packed scan took {peak} B beyond the resident index (limit {limit})"
+    state = rs.query.state
+    r200 = bs.search(Q, 2 * k, b=b, b_internal=w)
+    assert np.array_equal(nx.ids, r200.ids[:, k:]) and np.array_equal(nx.dists, r200.dists[:, k:]), \
+        "next(100) is not ranks 100-199 of a k=200 search"
+    # the function: each query's top k of the rows of its first b ranked
+    # leaves, scanned on the host (np_distances) in the same order; 32 of
+    # the queries, to keep the host's share of the phase small
+    from repro_torch.core.distances import np_distances
+
+    ranked = state.leaf_rank[:, :b].cpu().numpy()
+    fsi = open_index(str(fs), mode="file")
+    err = 0.0
+    for r in range(32):
+        nodes = fsi.get_nodes([(L, int(j)) for j in ranked[r] if j >= 0])
+        emb = np.concatenate([e for e, _ in nodes])
+        ids = np.concatenate([i for _, i in nodes])
+        d = np_distances(Q[r], emb, cfg.metric)
+        o = np.argsort(d, kind="stable")[:k]
+        err = max(err, compare_topk(f"serve (d) packed row {r} vs host scan of its leaves",
+                                    rs.dists[r:r + 1], rs.ids[r:r + 1], d[o][None], ids[o][None]))
+    # against the file-mode fp engine: both exhaustive (every leaf), so the
+    # two traversals see the same rows
+    pe = bs.search(Q[:8], k, b=n_leaves, b_internal=w)
+    fe = fsi.search(Q[:8], k, b=n_leaves)
+    compare_topk("serve (d) packed vs file mode, every leaf", pe.dists, pe.ids, fe.dists, fe.ids)
+    overlap = float(np.mean([len(set(rs.ids[r]) & set(built["fp_ids"][r])) / k for r in range(len(Q))]))
+    bsrv.close(sid)
+    out["batched"] = {"summary": bsrv.stats.summary(), "device_bytes": bs.device_bytes,
+                      "scan_peak_bytes": int(peak), "scan_peak_limit": int(limit),
+                      "leaves": n_leaves, "cap_padded": cap, "max_abs_err": err,
+                      "overlap_with_file_mode_at_b": overlap}
+    log(f"[serve] (d) packed: resident {bs.device_bytes / 1e9:.3f} GB ({n_leaves} leaves padded to {cap} rows), "
+        f"loaded in {out['packed_load_s']:.3f} s; 128 queries k={k} b={b} b_internal={w}: "
+        f"{out['batched_search_s'] * 1e3:.3f} ms, more({k}) {out['batched_more_s'] * 1e3:.3f} ms; scan peak "
+        f"{peak / 1e9:.3f} GB beyond the index (limit {limit / 1e9:.3f}); host scan of the same leaves agrees "
+        f"(32 queries) "
+        f"(max abs err {err:.3g}); next = ranks {k}-{2 * k - 1} of k={2 * k}; with every leaf scanned, ids agree "
+        f"with file mode (8 queries); at b={b} the two traversals share {overlap:.4f} of their top {k}; launches "
+        f"{out['batched_launches']}")
+    bsrv.shutdown()
+    del bs, state
+    torch.cuda.empty_cache()
+    out["part_s"]["d"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+    packed_tie_check(work, seed, res)
+    out["part_s"]["ties"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+    w2 = bytes_written()
+    out["bytes_written"] = None if w0 is None else w2 - w0
+    log(f"[serve] seconds by part {json.dumps(out['part_s'])}; bytes written by this process in the "
+        f"phase: {out['bytes_written']}; in the run so far: {w2}")
 
 
 # ------------------------------------------------------------ flash kernel
@@ -1155,7 +1569,7 @@ def main() -> int:
             p.wait()
         shutil.rmtree(fault_dir, ignore_errors=True)
     log(json.dumps({"kernels": kernels}))
-    log(f"total {time.time() - t_all:.1f} s")
+    log(f"total {time.time() - t_all:.1f} s; bytes written by this process (wchar): {bytes_written()}")
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1185,6 +1599,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
         scorer_on_index(built["store"], Q, res)
         assert res["main"]["bit_identical"], "quantized search differs from the fp engine"
         log(f"[main] phase done at {time.time() - t_all:.1f} s")
+        phase_serve(work, data, Q, cfg, res, built, args.seed)
+        log(f"[serve] phase done at {time.time() - t_all:.1f} s")
         shutil.rmtree(work / "main_fs")
         (work / "main.blob").unlink()
         cfg2 = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.l2_items, "metric": "l2"})
@@ -1213,7 +1629,9 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          **{a: g[a] for a in four}, "shape": "G=128 N=455 D=1152 int8 cosine k=128",
          "skew": {**res["grouped_skew"], "shape": "G=128, n_rows 5360 + 127 x 455 padded to 5360, else the same"},
          "main_path_per_round": {"kernel_ms": pr["kernel"], "bound_ms": pr["kernel_bound"],
-                                 "code_mb": pr["code_mb"], "rounds": res["main"]["quant_times"]["rounds"]}},
+                                 "code_mb": pr["code_mb"], "rounds": res["main"]["quant_times"]["rounds"]},
+         "serve_launches": {p: res["serve"][f"{p}_launches"]["grouped_distance_topk"]
+                            for p in ("interactive", "concurrent")}},
         {"name": "distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",

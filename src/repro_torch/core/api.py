@@ -8,12 +8,15 @@
     that owns the incremental state.
   * ``Query``      — handle with ``.next(k)`` and ``.close()``; a closed
     handle raises ``QueryClosedError``.
-  * ``open_index(path, mode="file")`` — the file-structure searcher
-    (``ECPIndex``).  ``mode="packed"`` and ``mode="auto"`` (the reference's
-    device-resident packed mode and its auto pick) are not ported yet.
+  * ``MutableIndex`` — protocol of a searcher whose index mutates while
+    serving (``insert`` / ``delete`` / ``compact``).
+  * ``open_index(path, mode="file"|"packed"|"auto")`` — the file-structure
+    searcher (``ECPIndex``) or the device-resident one
+    (``BatchedSearcher``); "auto" (the default) picks packed mode when the
+    device is a GPU, as the reference does on any accelerator.
 
 Not ported yet (ROADMAP Queue 1): ``MultiIndexSession``, ``RestartQuery``
-and ``MutableIndex`` (baselines and mutations), federations.
+(baselines), federations.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Protocol, runtime_checkable
 
 import numpy as np
 
+from ..device import resolve_device
 from .store import IOStats
 
 __all__ = [
@@ -36,6 +40,7 @@ __all__ = [
     "QueryClosedError",
     "StaleQueryError",
     "Searcher",
+    "MutableIndex",
     "open_index",
     "pack_rows",
 ]
@@ -375,18 +380,32 @@ class Searcher(Protocol):
 
 
 
+@runtime_checkable
+class MutableIndex(Protocol):
+    """A searcher whose index mutates while serving (core/lifecycle.py):
+    ``insert`` appends + splits leaves, ``delete`` tombstones, ``compact``
+    rewrites the tree to equal a fresh build of the live collection."""
+
+    def search(self, q, k: int = 100, *, b=None, **opts) -> ResultSet:
+        ...
+
+    def insert(self, vectors, ids=None) -> dict:
+        ...
+
+    def delete(self, ids) -> int:
+        ...
+
+    def compact(self) -> dict:
+        ...
+
+
 # ------------------------------------------------------------------ factory
-PACKED_TODO = (
-    "packed mode (and open_index(mode='auto'), which picks it on a GPU) is "
-    "not ported yet: ROADMAP Queue 1 #6, 'Packed device search'; use mode='file'"
-)
-
-
 def open_index(
     path,
-    mode: str = "file",
+    mode: str = "auto",
     *,
     backend: str = "auto",
+    prefetch: bool = False,
     cache: NodeCache | None = None,
     namespace: str | None = None,
     cache_max_nodes: int | None = None,
@@ -398,18 +417,19 @@ def open_index(
 
     mode="file"    -> ``ECPIndex``: lazy node loading, LRU cache, true
                       incremental search (the paper's mode).
-    mode="packed" | "auto" -> ``NotImplementedError`` (packed mode is a
-                      later slice of the port).
+    mode="packed"  -> ``BatchedSearcher``: whole hierarchy packed onto
+                      ``device`` for level-synchronous batched search.
+    mode="auto"    -> "packed" when ``device`` is a GPU, else "file"; a
+                      file-mode-only option (cache budgets, ``namespace``,
+                      ``prefetch``) also picks "file".
 
     ``backend`` picks the node storage (core/store.py): "fstore", "blob",
     or "auto" (blob when ``path`` is/contains a blob, else fstore).
-    ``device`` is where the quantized scan's kernel runs ("cuda" by
-    default; "cpu" runs its plain PyTorch version).  Extra keywords flow
-    to ``ECPIndex`` (``quantized=``, ``probe_m=``, ``scorer=`` ...).
+    ``device`` is where the device work runs ("cuda" by default; "cpu"
+    runs the plain PyTorch versions).  Extra keywords flow to the opened
+    class (``quantized=``, ``probe_m=``, ``scorer=`` ...).
     """
-    if mode in ("packed", "auto"):
-        raise NotImplementedError(PACKED_TODO)
-    if mode != "file":
+    if mode not in ("file", "packed", "auto"):
         raise ValueError(f"unknown open_index mode: {mode!r} (file|packed|auto)")
     if isinstance(path, (str, os.PathLike)) and os.path.isfile(
         os.path.join(os.fspath(path), "federation.json")
@@ -417,15 +437,44 @@ def open_index(
         raise NotImplementedError(
             "federated indexes are not ported yet (ROADMAP Queue 1 #8, 'Federation')"
         )
-    from .search import ECPIndex
-
-    return ECPIndex(
-        path,
-        backend=backend,
-        cache=cache,
-        namespace=namespace,
-        cache_max_nodes=cache_max_nodes,
-        cache_max_bytes=cache_max_bytes,
-        device=device,
-        **kw,
+    wants_cache = (
+        cache is not None
+        or namespace is not None
+        or cache_max_nodes is not None
+        or cache_max_bytes is not None
     )
+    wants_prefetch = prefetch or backend.endswith("+prefetch")
+    if mode == "auto":
+        if wants_cache or wants_prefetch:
+            mode = "file"  # cache budgets / prefetch are file-mode requests
+        else:
+            mode = "packed" if resolve_device(device).type == "cuda" else "file"
+    if mode == "file":
+        from .search import ECPIndex
+
+        return ECPIndex(
+            path,
+            backend=backend,
+            prefetch=prefetch,
+            cache=cache,
+            namespace=namespace,
+            cache_max_nodes=cache_max_nodes,
+            cache_max_bytes=cache_max_bytes,
+            device=device,
+            **kw,
+        )
+    if wants_cache or wants_prefetch:
+        raise ValueError(
+            "packed mode loads the whole hierarchy onto the device; "
+            "cache/namespace/cache_max_*/prefetch only apply to mode='file'"
+        )
+    from . import batched
+    from .packed import load_packed
+    from .store import open_store
+
+    store = open_store(path, backend=backend)
+    try:
+        packed = load_packed(store)
+    finally:
+        store.close()
+    return batched.BatchedSearcher(packed, device=device, **kw)

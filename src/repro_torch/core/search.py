@@ -24,7 +24,8 @@ Two paths run on the device (``device``, "cuda" by default):
     encodes on the fly) and every traversal round makes ONE grouped
     distance + top-k launch over all (query, leaf) units of the round
     (kernels/distance_topk, ``grouped_distance_topk``).  The round's codes
-    go to the device through one reusable pinned staging buffer, one
+    go to the device through a pinned staging buffer the round checks out
+    of the index's pool (concurrent searches never share one), one
     host-to-device copy per round, timed apart from the kernel
     (``ECPIndex.quant_times``).  Survivors whose sound distance lower
     bound could still reach the query's rerank depth
@@ -36,12 +37,19 @@ Two paths run on the device (``device``, "cuda" by default):
     Device float math is not bit-identical to numpy: an opt-in mode
     outside the parity suite.
 
+The index is mutable (``insert``, ``delete``, ``compact``, through
+core/lifecycle.py, serialized on ``_mut_lock``), and ``snapshot()`` on a
+blob returns an ``ECPSnapshot``: a generation-pinned read-only view that
+N threads may search at once.
+
 Not ported yet (ROADMAP Queue 1): ``engine="legacy"``, ``Query.save`` /
-``load_query``, ``snapshot()``, prefetch, ``pin_internal``, ``insert``,
-``delete`` and ``compact`` — each raises ``NotImplementedError``.
+``load_query``, prefetch and ``pin_internal`` — each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -49,7 +57,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import layout
+from . import layout, lifecycle
 from .api import NodeCache, Query, ResultSet, SearchStats, StaleQueryError, pack_rows
 from .distances import np_distances
 from .frontier import CandidateBuffer, Frontier
@@ -59,6 +67,7 @@ from .store import NodeNormCache, Store, open_store
 __all__ = [
     "ECPIndex",
     "ECPQuery",
+    "ECPSnapshot",
     "QueryState",
     "NodeCache",
     "SearchStats",
@@ -206,6 +215,29 @@ class _PinnedStage:
             src[o : o + n].view(self._TORCH[dt]).view(shape)
             for o, n, shape, dt in self._layout
         ]
+
+
+class _StagePool:
+    """Staging buffers for the quantized rounds of one index and its
+    snapshots: a round checks one out for the span from filling it to
+    reading its results back, and returns it; concurrent searches (the
+    serving scheduler's workers on one snapshot) each get their own, so no
+    round refills a buffer another round's copy may still be reading."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._free: list[_PinnedStage] = []
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def stage(self):
+        with self._lock:
+            st = self._free.pop() if self._free else _PinnedStage(self.device)
+        try:
+            yield st
+        finally:
+            with self._lock:
+                self._free.append(st)
 
 
 def make_kernel_scorer(min_rows: int = 256, bucket: int = 512, *, device="cuda"):
@@ -370,13 +402,21 @@ class ECPIndex:
             )
         self.device = resolve_device(device)
         self._owns_store = not isinstance(path, Store)
+        self._reopen = dict(path=path, backend=backend) if self._owns_store else None
         self.store = path if isinstance(path, Store) else open_store(path, backend=backend)
         attrs = self.store.read_attrs(layout.INFO)
         self.info = layout.IndexInfo.from_attrs(attrs)
         self._tombstones: set = layout.read_tombstones(attrs)
         self._tomb_arr: np.ndarray | None = None
-        self._epoch = 0
+        self._epoch = 0  # bumped by structural rewrites (compact)
+        # per-node version counters for the cache key (bumped on every
+        # in-place rewrite) — a pinned ECPSnapshot copies this map, so a
+        # shared NodeCache can never serve it bytes newer than its pin
         self._node_ver: dict[tuple[int, int], int] = {}
+        # serializes insert/delete/compact/refresh against each other AND
+        # against snapshot(): a snapshot is only ever taken at a published
+        # generation, never mid-mutation
+        self._mut_lock = threading.RLock()
         # Loading the index = read info + the root node only (paper §4.2).
         self.root_emb, self.root_ids = self.store.get_node(0, 0)
         self.cache = cache if cache is not None else NodeCache(
@@ -411,7 +451,7 @@ class ECPIndex:
         )
         # multi-probe traversal default (per-call ``probe_m=`` overrides)
         self._probe_m = max(1, int(probe_m))
-        self._stage = _PinnedStage(self.device)
+        self._stages = _StagePool(self.device)
         # the quantized scan's time, summed over rounds: filling the staging
         # buffer and the rerank on the host clock, the codes' host-to-device
         # copy and the kernel on CUDA events (CUDA only; zero on the CPU);
@@ -421,6 +461,7 @@ class ECPIndex:
             "rounds": 0, "h2d_bytes": 0, "code_bytes": 0, "stage_ms": 0.0, "h2d_ms": 0.0,
             "kernel_ms": 0.0, "rerank_ms": 0.0,
         }
+        self._qt_lock = threading.Lock()  # concurrent searches add to quant_times
 
     # ------------------------------------------------------------ node IO
     def _key(self, level: int, node: int) -> tuple:
@@ -523,26 +564,61 @@ class ECPIndex:
     def __exit__(self, *exc) -> None:
         self.close()
 
-    # ------------------------------------------------- not ported yet
+    # ----------------------------------------------------------- mutation
     def insert(self, vectors, ids=None) -> dict:
-        raise _todo("insert", "5")
+        """Insert vectors into the live index (core/lifecycle.py): beam-1
+        routing, leaf appends, 2-means splits past ``cluster_cap``.
+        Mutations serialize on the index's mutation lock; concurrent
+        readers go through ``snapshot()`` (or an external RW lock)."""
+        with self._mut_lock:
+            return lifecycle.insert_items(self, vectors, ids)
 
     def delete(self, ids) -> int:
-        raise _todo("delete", "5")
+        """Tombstone item ids; searches filter them from results."""
+        with self._mut_lock:
+            return lifecycle.delete_items(self, ids)
 
     def compact(self) -> dict:
-        raise _todo("compact", "5")
+        """Purge tombstones + rebalance splits by rebuilding from the live
+        items — bit-identical to a fresh build of the logical collection."""
+        with self._mut_lock:
+            return lifecycle.compact(self)
 
-    def snapshot(self):
-        raise _todo("snapshot()", "2")
+    def snapshot(self) -> "ECPSnapshot":
+        """An isolated read-only view of the index at its current
+        generation (requires a store with ``pin()`` — the blob backend).
+
+        The snapshot answers ``search``/``next`` bit-identically to a
+        fresh single-threaded search of this generation, forever: later
+        ``insert``/``delete``/``compact`` on the live index cannot touch
+        it (copy-on-write slots + a dup'd fd), and its query handles never
+        raise ``StaleQueryError``.  Taken under the mutation lock, so it
+        always captures a published generation.  ``close()`` (or
+        ``release()``) drops the pin; ``acquire()``/``release()`` refcount
+        it for sharing across concurrent requests.  A quantized index's
+        snapshot scans on the same device, from its own staging buffers."""
+        pin = getattr(self.store, "pin", None)
+        if pin is None:
+            raise NotImplementedError(
+                f"snapshot() needs a generation-pinning store (blob); this "
+                f"index uses {self.store.backend!r} — serialize readers and "
+                "writers externally instead (launch/scheduler.py does)"
+            )
+        with self._mut_lock:
+            return ECPSnapshot(self, pin())
+
+    @property
+    def supports_snapshot(self) -> bool:
+        """Whether ``snapshot()`` works here — i.e. the store pins
+        generations (blob).  The serving scheduler keys its isolation
+        strategy off this."""
+        return getattr(self.store, "pin", None) is not None
 
     def prefetch(self, up_to_level: int) -> None:
         raise _todo("prefetch", "2")
 
     def load_query(self, name: str, *, group: str = "query_states") -> ECPQuery:
         raise _todo("Query.save / load_query", "3")
-
-    supports_snapshot = False
 
     @property
     def tombstones(self) -> set:
@@ -562,6 +638,59 @@ class ECPIndex:
                 np.fromiter(self._tombstones, np.int64, len(self._tombstones))
             )
         return self._tomb_arr
+
+    def _apply_mutation(
+        self, new_info, written, *, tombstones: set | None = None, structural: bool = False
+    ) -> None:
+        """Post-mutation bookkeeping (called by core/lifecycle.py): cache
+        invalidation for rewritten nodes (keys are namespaced), metadata
+        refresh, root reload.  Rewritten nodes also bump their cache-key
+        version so pinned snapshots keep resolving the old entries, never
+        the new bytes."""
+        if structural:
+            self.cache.invalidate_namespace(self._ns)
+            if self._norms is not None:
+                self._norms.clear()
+            self._node_ver.clear()
+            self._epoch += 1
+        else:
+            for key in written:
+                self.cache.invalidate(self._key(*key))
+                self._node_ver[key] = self._node_ver.get(key, 0) + 1
+        if tombstones is not None:
+            self._tombstones = set(tombstones)
+            self._tomb_arr = None
+        if new_info is not None:
+            self.info = new_info
+        if structural or (0, 0) in set(written):
+            self.root_emb, self.root_ids = self.store.get_node(0, 0)
+
+    def _reload_store(self) -> None:
+        """Reopen the underlying store after its file was swapped (blob
+        compaction); the old fd would keep serving the old file."""
+        if self._reopen is None:
+            raise ValueError(
+                "cannot reopen a caller-provided Store; open the index "
+                "from a path to use blob compaction"
+            )
+        self.store.close()
+        self.store = open_store(**self._reopen)
+
+    def refresh(self) -> None:
+        """Resynchronize with the files after they changed OUTSIDE this
+        process (another writer mutated or compacted the index): reopen a
+        swapped blob, re-read metadata/tombstones/root, drop every cached
+        node.  Open query handles become stale (``StaleQueryError``)."""
+        with self._mut_lock:
+            if self.store.backend.startswith("blob") and self._reopen is not None:
+                self._reload_store()  # an os.replace'd blob needs a fresh fd
+            attrs = self.store.read_attrs(layout.INFO)
+            self._apply_mutation(
+                layout.IndexInfo.from_attrs(attrs),
+                (),
+                tombstones=layout.read_tombstones(attrs),
+                structural=True,
+            )
 
     # ------------------------------------------------------------ scoring
     def _sqnorms(self, level: int, node: int, emb: np.ndarray) -> np.ndarray | None:
@@ -915,7 +1044,8 @@ class ECPIndex:
             active = [qs for qs in active if id(qs) not in done and qs.T]
         t0 = time.perf_counter()
         self._quant_finalize(pending)
-        self.quant_times["rerank_ms"] += (time.perf_counter() - t0) * 1e3
+        with self._qt_lock:
+            self.quant_times["rerank_ms"] += (time.perf_counter() - t0) * 1e3
         agg.io.add(self.store.io.delta(io_before))
         for qs in states:
             qs.I.commit()
@@ -954,45 +1084,52 @@ class ECPIndex:
         n_max = max(u[2].n_rows for u in units)
         r_max = max(u[3] for u in units)
         kop = min(n_max, -(-(r_max + 16) // 32) * 32)
-        # every input of the launch is written straight into the staging
-        # buffer and goes to the device in one copy
-        t0 = time.perf_counter()
-        q_arr, codes, scales, offsets, n_rows = self._stage.begin([
-            ((G, info.dim), np.float32),
-            ((G, n_max, info.dim), qdtype(self._qformat)),
-            ((G,), np.float32),
-            ((G,), np.float32),
-            ((G,), np.int32),
-        ])
-        for g, (qs, key, qn, R) in enumerate(units):
-            q_arr[g] = qs.q
-            codes[g, : qn.n_rows] = qn.codes
-            codes[g, qn.n_rows :] = 0
-            scales[g] = qn.scale
-            offsets[g] = qn.offset
-            n_rows[g] = qn.n_rows
-        t = self.quant_times
-        t["stage_ms"] += (time.perf_counter() - t0) * 1e3
-        t["rounds"] += 1
-        t["h2d_bytes"] += self._stage.nbytes
-        t["code_bytes"] += int(n_rows.sum()) * info.dim * codes.itemsize
+        # every input of the launch is written straight into a staging
+        # buffer of its own and goes to the device in one copy
         timed = self.device.type == "cuda"
-        if timed:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-        args = self._stage.upload()
-        if timed:
-            ev[1].record()
-        d_t, i_t = _kernel_ops().grouped_distance_topk_tensors(
-            *args, kop, metric, self._qformat
-        )
-        if timed:
-            ev[2].record()
-        dists, idxs = d_t.cpu().numpy(), i_t.cpu().numpy()
+        with self._stages.stage() as stage:
+            t0 = time.perf_counter()
+            q_arr, codes, scales, offsets, n_rows = stage.begin([
+                ((G, info.dim), np.float32),
+                ((G, n_max, info.dim), qdtype(self._qformat)),
+                ((G,), np.float32),
+                ((G,), np.float32),
+                ((G,), np.int32),
+            ])
+            for g, (qs, key, qn, R) in enumerate(units):
+                q_arr[g] = qs.q
+                codes[g, : qn.n_rows] = qn.codes
+                codes[g, qn.n_rows :] = 0
+                scales[g] = qn.scale
+                offsets[g] = qn.offset
+                n_rows[g] = qn.n_rows
+            stage_ms = (time.perf_counter() - t0) * 1e3
+            code_bytes = int(n_rows.sum()) * info.dim * codes.itemsize
+            if timed:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+            args = stage.upload()
+            if timed:
+                ev[1].record()
+            d_t, i_t = _kernel_ops().grouped_distance_topk_tensors(
+                *args, kop, metric, self._qformat
+            )
+            if timed:
+                ev[2].record()
+            # reading the results back waits for the copy and the kernel:
+            # only then may the stage go back to the pool
+            dists, idxs = d_t.cpu().numpy(), i_t.cpu().numpy()
+            h2d_bytes = stage.nbytes
         agg.kernel_launches += 1
-        if timed:
-            t["h2d_ms"] += ev[0].elapsed_time(ev[1])
-            t["kernel_ms"] += ev[1].elapsed_time(ev[2])
+        with self._qt_lock:
+            t = self.quant_times
+            t["stage_ms"] += stage_ms
+            t["rounds"] += 1
+            t["h2d_bytes"] += h2d_bytes
+            t["code_bytes"] += code_bytes
+            if timed:
+                t["h2d_ms"] += ev[0].elapsed_time(ev[1])
+                t["kernel_ms"] += ev[1].elapsed_time(ev[2])
         # ---- record approximate results; advance per-query control flow
         for g, (qs, key, qn, R) in enumerate(units):
             dead_rows = None
@@ -1221,3 +1358,94 @@ class ECPIndex:
                 return rows, True
         return rows, False
 
+
+class ECPSnapshot(ECPIndex):
+    """A generation-pinned, read-only ``ECPIndex`` view — the serving
+    subsystem's unit of snapshot isolation.
+
+    Created by ``ECPIndex.snapshot()`` under the mutation lock: the store
+    is a pinned ``BlobSnapshot`` (own dup'd fd, copy-on-write protected
+    slots) and the in-memory metadata (info, tombstones, root, cache-key
+    versions, epoch) is frozen at the same instant, so every search —
+    including ``next(k)`` continuations issued arbitrarily later — is
+    bit-identical to a fresh single-threaded search of that generation.
+    One exception, shared with the reference (ROADMAP Queue 3): a quantized
+    l2 or ip ``next(k)`` that reaches past the rerank depth
+    (``emitted + k > rerank_depth``) depends on which of its leaves the
+    shared cache already held in full precision (those are scanned whole,
+    the others pruned at the depth of the search), so it follows what other
+    searches warmed; its first ``k`` do not.
+    The node cache (and norm cache) is SHARED with the parent: versioned
+    keys keep the pinned and live entries apart while still letting
+    snapshot readers reuse everything the live index already loaded.  So
+    are the quantized scan's device, staging pool and ``quant_times``.
+
+    Searches are thread-safe (no per-index mutable search state beyond
+    locked caches, pooled staging buffers and locked counters), so N
+    scheduler workers can serve from one snapshot.
+    ``acquire()``/``release()`` refcount the pin across concurrent
+    lease-holders; ``close()`` is an alias for ``release()``.  Mutations
+    raise ``PermissionError``.
+    """
+
+    def __init__(self, parent: ECPIndex, view):
+        # deliberately NOT calling ECPIndex.__init__: every field is
+        # copied from the parent (or shared where immutable/lock-guarded)
+        self._owns_store = True  # close() releases the pinned view
+        self._reopen = None
+        self.store = view
+        self.device = parent.device
+        self.info = parent.info
+        self._tombstones = set(parent._tombstones)
+        self._tomb_arr = parent._tomb_arr
+        self._epoch = parent._epoch
+        self._node_ver = dict(parent._node_ver)
+        self._mut_lock = threading.RLock()  # uncontended; type uniformity
+        self.root_emb, self.root_ids = parent.root_emb, parent.root_ids
+        self.cache = parent.cache
+        self._ns = parent._ns
+        self.load_node_count = 0
+        self.engine = parent.engine
+        self._scorer = parent._scorer
+        self._batch_matrix = parent._batch_matrix
+        self._norms = parent._norms
+        self._quantized = parent._quantized
+        self._rerank_depth = parent._rerank_depth
+        self._qformat = parent._qformat
+        self._quant_seq = parent._quant_seq
+        self._probe_m = parent._probe_m
+        self._stages = parent._stages
+        self.quant_times = parent.quant_times
+        self._qt_lock = parent._qt_lock
+        self._refs = 1
+        self._refs_lock = threading.Lock()
+
+    # ------------------------------------------------------------ lifecycle
+    def acquire(self) -> "ECPSnapshot":
+        """Take one more reference (a scheduler lease); pair with
+        ``release()``."""
+        with self._refs_lock:
+            if self._refs <= 0:
+                raise ValueError("snapshot is closed")
+            self._refs += 1
+        return self
+
+    def release(self) -> None:
+        """Drop one reference; the last one releases the store pin."""
+        with self._refs_lock:
+            self._refs -= 1
+            if self._refs != 0:
+                return
+        self.store.close()
+
+    def close(self) -> None:
+        self.release()
+
+    # ------------------------------------------------------------- mutation
+    def _read_only(self, *_a, **_k):
+        raise PermissionError(
+            "ECPSnapshot is a pinned read-only view; mutate the live index"
+        )
+
+    insert = delete = compact = refresh = prefetch = _read_only
+    _apply_mutation = _reload_store = _read_only

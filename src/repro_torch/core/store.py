@@ -1,17 +1,26 @@
-"""Pluggable node-storage backends — the I/O seam under the searcher.
+"""Pluggable node-storage backends — the I/O seam under every searcher.
 
-The port's copy of the reference's store layer, for the read path and the
-one-shot build: the ``Store`` protocol, ``FStoreBackend`` (the zarr-v2
-hierarchy, readable and writable), ``BlobStore`` reads of the v1/v2/v3
-single-file formats including the v3 quantized companion blocks
-(``get_quantized``, ``get_nodes_quantized``, ``get_node_rows``),
+The port's copy of the reference's store layer: the ``Store`` protocol,
+``FStoreBackend`` (the zarr-v2 hierarchy), ``BlobStore`` (v1/v2/v3 single
+files, with the v3 quantized companion blocks), their write path
+(``write_attrs``, ``write_node``, ``append_rows``, ``delete_rows``,
+``free_slot``), generation pinning (``BlobStore.pin`` -> ``BlobSnapshot``),
 ``convert(..., quant=)``, ``NodeNormCache`` and ``open_store``.  Every
 byte read or written is the reference's, so either package opens what the
 other wrote.
 
-Not ported yet (ROADMAP Queue 1): generation pinning (``BlobSnapshot``,
-``BlobStore.pin``), ``AsyncPrefetchStore``, and the structural mutations
-(``append_rows``, ``delete_rows``, ``free_slot``, blob ``write_node``).
+  ``Store``
+    * ``get_node(level, node)``          one node's (embeddings f32, ids)
+    * ``get_nodes([(level, node), ..])`` batched node reads (backends may
+                                         coalesce adjacent blocks)
+    * ``read_attrs`` / ``write_attrs``   JSON metadata (``info`` group)
+    * ``write_node(level, node, emb, ids)``
+    * ``append_rows(level, node, emb, ids)``   grow a node in place
+    * ``delete_rows(level, node, drop_ids)``   physically remove rows by id
+    * ``free_slot(level, node)``         release a node's storage; the node
+                                         id stays valid but empty
+    * ``io``                             an ``IOStats`` counter
+    * level 0, node 0 is the index root (``index_root`` in the file layout)
 
 BlobStore on-disk format::
 
@@ -24,14 +33,45 @@ BlobStore on-disk format::
             embeddings (emb_dtype) then n_rows ids (ids_dtype),
             zero-padded to block_bytes.
 
-  ``ecp-blob/1``  node -> physical slot is implicit, (level, node) order.
-  ``ecp-blob/2``  the header carries ``slots`` (per-node physical slot,
-            -1 = released), ``free_slots`` and ``n_slots``.
-  ``ecp-blob/3``  v2 plus a quantized companion block per slot: the header
-            adds ``quant = {"qformat", "q_block_bytes"}`` and every slot's
+Two header formats share the magic; the JSON ``format`` field versions them:
+
+  ``ecp-blob/1``  node -> physical slot is implicit: slots are ordered by
+            (level, node) and the file is exactly full.  Read-only in
+            structure: rows in an existing slot may be rewritten, but no
+            node can be added or released.
+  ``ecp-blob/2``  the mutable form (``convert()`` default): the header
+            additionally carries ``slots`` (a per-node physical-slot map,
+            -1 = released), ``free_slots`` (released physical slots,
+            reused by the next allocation), and ``n_slots`` (slots ever
+            allocated — the file's data region is n_slots blocks).  New
+            nodes appended by leaf splits take a free slot or grow the
+            file; ``block_bytes`` is sized so a full ``cluster_cap`` leaf
+            always fits.  A v1 file is upgraded to v2 in place the first
+            time a structural mutation needs the slot map (if its reserved
+            header page can hold the map — otherwise rebuild).
+  ``ecp-blob/3``  v2 plus a quantized companion block per slot
+            (``convert(..., quant="int8"|"float16")``): the header adds
+            ``quant = {"qformat", "q_block_bytes"}`` and every slot's
             stride becomes ``block_bytes + q_block_bytes`` — the
             full-precision block, then ``[scale f32][offset f32][codes
-            n_rows*dim]``.
+            n_rows*dim]``.  ``get_quantized``/``get_nodes_quantized``
+            read only the (much smaller) companion; ``get_node_rows``
+            reads a subset of full-precision rows for the rerank;
+            ``write_node`` re-encodes the companion on every update so
+            insert/delete/split/compact keep the two views coherent.
+            Stores without a companion (v1/v2 blobs, fstore) serve
+            ``get_quantized`` by encoding on the fly from the
+            full-precision rows — same codes, no byte savings.
+
+Snapshot isolation (the serving scheduler's read side): ``BlobStore.pin()``
+returns a ``BlobSnapshot`` — a read-only view pinned to the header version
+at pin time, on its own dup'd fd.  While pins are outstanding, in-place
+node updates copy-on-write into fresh slots and the superseded slots are
+retired (recycled once every older pin releases), so snapshot reads are
+bit-identical to the pinned version forever and never take the store lock.
+
+Not ported yet (ROADMAP Queue 1 #2): ``AsyncPrefetchStore`` (the
+``"<name>+prefetch"`` backends).
 """
 from __future__ import annotations
 
@@ -54,6 +94,7 @@ __all__ = [
     "Store",
     "FStoreBackend",
     "BlobStore",
+    "BlobSnapshot",
     "NodeNormCache",
     "open_store",
     "convert",
@@ -189,11 +230,13 @@ class IOStats:
 class Store(Protocol):
     """Node storage for an eCP index; level 0 node 0 is the root.
 
-    Optional extensions (probed with ``getattr``): ``get_quantized(level,
-    node, qformat)`` / ``get_nodes_quantized(keys, qformat)`` returning
-    ``QuantNode``s, ``get_node_ids(level, node)`` (ids only),
-    ``get_node_rows(level, node, rows)`` (a sorted subset of fp rows) and
-    ``node_rows(keys)`` (row counts) — the quantized-scan/rerank seam."""
+    Optional extensions (not required for isinstance checks, probed with
+    ``getattr``): ``get_quantized(level, node, qformat)`` /
+    ``get_nodes_quantized(keys, qformat)`` returning ``QuantNode``s,
+    ``get_node_ids(level, node)`` (ids only), and
+    ``get_node_rows(level, node, rows)`` (a sorted subset of fp rows) —
+    the quantized-scan/rerank seam.  Backends without them still serve
+    the quantized engine via the engine's encode-on-the-fly fallback."""
 
     backend: str
     io: IOStats
@@ -207,8 +250,24 @@ class Store(Protocol):
     def read_attrs(self, path: str) -> dict:
         ...
 
+    def write_attrs(self, path: str, attrs: dict) -> None:
+        ...
+
+    def write_node(self, level: int, node: int, emb: np.ndarray, ids: np.ndarray) -> None:
+        ...
+
+    def append_rows(self, level: int, node: int, emb: np.ndarray, ids: np.ndarray) -> None:
+        ...
+
+    def delete_rows(self, level: int, node: int, drop_ids: np.ndarray) -> int:
+        ...
+
+    def free_slot(self, level: int, node: int) -> None:
+        ...
+
     def close(self) -> None:
         ...
+
 
 def _node_group(level: int, node: int) -> str:
     if level == 0:
@@ -237,6 +296,7 @@ class FStoreBackend:
         self.fstore.io = self.io  # FStore counts json/chunk reads into it
         self.path = self.fstore.root
         self._dim: int | None = None
+        self._dtype: np.dtype | None = None
 
     def __getattr__(self, name):
         # hierarchy ops (read_array, create_group, listdir, exists, ...)
@@ -248,6 +308,11 @@ class FStoreBackend:
         if self._dim is None:
             self._dim = int(self.read_attrs(layout.INFO).get("dim", 0))
         return self._dim
+
+    def _node_dtype(self) -> np.dtype:
+        if self._dtype is None:
+            self._dtype = np.dtype(self.read_attrs(layout.INFO).get("dtype", "float16"))
+        return self._dtype
 
     # -------------------------------------------------------------- protocol
     def get_node(self, level: int, node: int) -> tuple[np.ndarray, np.ndarray]:
@@ -325,6 +390,45 @@ class FStoreBackend:
         self.fstore.write_array(f"{g}/{layout.EMB}", np.asarray(emb), chunk_rows=chunk_rows)
         self.fstore.write_array(f"{g}/{layout.IDS}", np.asarray(ids))
 
+    def append_rows(
+        self,
+        level: int,
+        node: int,
+        emb: np.ndarray,
+        ids: np.ndarray,
+        *,
+        chunk_rows: int | None = None,
+    ) -> None:
+        """Grow a node in place; only the trailing chunk of each array is
+        rewritten.  Creates the node when missing (the streaming build's
+        first touch of a leaf)."""
+        emb, ids = np.asarray(emb), np.asarray(ids)
+        if emb.shape[0] != ids.shape[0]:
+            raise ValueError(f"append_rows shape mismatch: emb {emb.shape} ids {ids.shape}")
+        g = _node_group(level, node)
+        if not self.fstore.is_group(g):
+            self.fstore.create_group(g)
+        # ids metadata is rewritten last: a torn append leaves extra emb
+        # rows invisible to get_node (which sizes the node by its ids)
+        self.fstore.append_rows(f"{g}/{layout.EMB}", emb, chunk_rows=chunk_rows)
+        self.fstore.append_rows(f"{g}/{layout.IDS}", ids)
+
+    def delete_rows(self, level: int, node: int, drop_ids: np.ndarray) -> int:
+        """Physically remove the rows whose ids are in ``drop_ids``."""
+        emb, ids = self.get_node(level, node)
+        if len(ids) == 0:
+            return 0
+        keep = ~np.isin(ids, np.asarray(drop_ids, ids.dtype))
+        removed = int((~keep).sum())
+        if removed:
+            self.write_node(level, node, emb[keep].astype(self._node_dtype()), ids[keep])
+        return removed
+
+    def free_slot(self, level: int, node: int) -> None:
+        """Release a node's storage (the group vanishes from the
+        hierarchy); the node id stays addressable and reads as empty."""
+        self.fstore.delete(_node_group(level, node))
+
     def close(self) -> None:
         pass
 
@@ -337,8 +441,12 @@ def _align(n: int, page: int) -> int:
 class BlobStore:
     """Page-aligned single-file backend: one ``pread`` per node.
 
-    Reads v1, v2 and v3 blobs (``convert()`` writes them).  The port opens
-    a blob read-only: in-place mutation of a blob is not ported yet.
+    A v2 blob (``convert()`` default) is mutable: nodes can be rewritten,
+    grown (``append_rows``), added (``write_node`` at the level's next
+    index — leaf splits), or released (``free_slot``, slot returned to the
+    header's free list).  A v1 blob allows only in-slot rewrites; the
+    first structural mutation upgrades it to v2 in place when the reserved
+    header page can hold the slot map.
     """
 
     backend = "blob"
@@ -351,7 +459,12 @@ class BlobStore:
             raise FileNotFoundError(f"blob store does not exist: {p}")
         self.path = p
         self.io = IOStats()
-        self._fd = os.open(p, os.O_RDONLY)
+        try:
+            self._fd = os.open(p, os.O_RDWR)
+            self._writable = True
+        except OSError:  # EACCES, EROFS (read-only mounts), ...
+            self._fd = os.open(p, os.O_RDONLY)
+            self._writable = False
         head = os.pread(self._fd, 16, 0)
         if head[:8] != BLOB_MAGIC:
             os.close(self._fd)
@@ -380,6 +493,8 @@ class BlobStore:
         self._n_rows: list[list[int]] = [list(map(int, lv)) for lv in h["levels"]]
         if self.format >= 2:
             self._slots: list[list[int]] = [list(map(int, lv)) for lv in h["slots"]]
+            self._free: list[int] = sorted(int(s) for s in h.get("free_slots", []))
+            self._n_slots = int(h["n_slots"])
         else:
             # v1: physical slots are implicitly (level, node)-ordered
             at = 0
@@ -387,7 +502,22 @@ class BlobStore:
             for lv in self._n_rows:
                 self._slots.append(list(range(at, at + len(lv))))
                 at += len(lv)
+            self._free = []
+            self._n_slots = at
         self._row_bytes = self.dim * self.emb_dtype.itemsize + self.ids_dtype.itemsize
+        # re-entrant: append_rows/delete_rows hold it across their whole
+        # read-modify-write, and call write_node (which takes it) inside
+        self._lock = threading.RLock()
+        # ---- MVCC: generation pinning for snapshot-isolated readers ----
+        # every header install bumps _mvcc_seq; pin() records the current
+        # seq and returns a BlobSnapshot whose reads see exactly that
+        # header.  While pins exist, in-place updates copy-on-write into a
+        # fresh slot and the old slot is RETIRED (kept out of the free
+        # list) until every pin taken before the retirement is released.
+        self._mvcc_seq = 0
+        self._pins: dict[int, int] = {}  # pin id -> seq pinned at
+        self._next_pin = 0
+        self._retired: list[tuple[int, int]] = []  # (seq retired at, slot)
 
     # ---------------------------------------------------------------- layout
     @property
@@ -403,6 +533,10 @@ class BlobStore:
             raise KeyError(f"no such node in blob: lvl {level} node {node}")
         if level == 0 and node != 0:
             raise KeyError("level 0 has only the root node")
+
+    def _slot(self, level: int, node: int) -> int:
+        self._check_key(level, node)
+        return self._slots[level][node]
 
     def _offset(self, slot: int) -> int:
         return self.data_offset + slot * self._stride
@@ -421,8 +555,9 @@ class BlobStore:
         return np.zeros((0, self.dim), np.float32), np.zeros((0,), self.ids_dtype)
 
     # ------------------------------------------------------------- raw reads
-    # fd/slot-map/row-counts come in as parameters, as in the reference
-    # (where a pinned snapshot shares this read + coalescing code)
+    # fd/slot-map/row-counts come in as parameters so a pinned
+    # ``BlobSnapshot`` (own dup'd fd, frozen maps) shares the exact same
+    # read + coalescing code as the live store
     def _read_one(self, fd: int, slot: int, n_rows: int, io: IOStats):
         need = n_rows * self._row_bytes
         buf = os.pread(fd, need, self._offset(slot))
@@ -601,10 +736,453 @@ class BlobStore:
             return dict(self._header["info"])
         return {}
 
+    def write_attrs(self, path: str, attrs: dict) -> None:
+        if not self._writable:
+            raise PermissionError(f"blob store opened read-only: {self.path}")
+        if path != layout.INFO:
+            raise ValueError(
+                f"blob store only holds '{layout.INFO}' attributes, not {path!r}"
+            )
+        with self._lock:
+            old = self._header
+            self._header = dict(old)
+            self._header["info"] = dict(attrs)
+            try:
+                self._rewrite_header_locked()
+            except ValueError:
+                # an oversized header (e.g. a huge tombstone list) raises
+                # BEFORE any byte is written; in-memory state must agree
+                # with the disk, so the old attrs come back
+                self._header = old
+                raise
+
+    def _prep_rows(self, emb, ids) -> tuple[np.ndarray, np.ndarray, bytes]:
+        emb = np.ascontiguousarray(np.asarray(emb), dtype=self.emb_dtype)
+        ids = np.ascontiguousarray(np.asarray(ids), dtype=self.ids_dtype)
+        if emb.ndim != 2 or emb.shape[1] != self.dim or emb.shape[0] != ids.shape[0]:
+            raise ValueError(
+                f"write_node shape mismatch: emb {emb.shape} ids {ids.shape} dim {self.dim}"
+            )
+        need = emb.shape[0] * self._row_bytes
+        if need > self.block_bytes:
+            raise ValueError(
+                f"node data ({need} B) exceeds the fixed block size "
+                f"({self.block_bytes} B = {self.capacity_rows} rows); split the "
+                "node first or rebuild the blob with convert()"
+            )
+        block = emb.tobytes() + ids.tobytes()
+        block += b"\0" * (self.block_bytes - len(block))
+        if self.quant_format is not None:
+            # re-encode the companion from the storage-dtype-rounded rows
+            # so codes match what a reader would encode from get_node
+            qn = encode_node(np.asarray(emb, np.float32), self.quant_format)
+            qraw = (
+                np.float32(qn.scale).tobytes()
+                + np.float32(qn.offset).tobytes()
+                + qn.codes.tobytes()
+            )
+            if len(qraw) > self.q_block_bytes:
+                raise ValueError(
+                    f"quantized node data ({len(qraw)} B) exceeds the quant "
+                    f"block size ({self.q_block_bytes} B); rebuild with convert()"
+                )
+            block += qraw + b"\0" * (self.q_block_bytes - len(qraw))
+        return emb, ids, block
+
+    def write_node(self, level: int, node: int, emb: np.ndarray, ids: np.ndarray) -> None:
+        """In-place node update; ``node == len(level)`` appends a new node
+        (v2: slot from the free list, else the file grows by one block).
+
+        NOT crash-atomic: the block and header are two in-place writes, so
+        a crash between them can leave a stale row count over new bytes.
+        The blob is a derived serving artifact — the writable source of
+        truth is the fstore hierarchy (every write there goes through
+        tmp + os.replace); rebuild a torn blob with ``convert()``.
+        """
+        if not self._writable:
+            raise PermissionError(f"blob store opened read-only: {self.path}")
+        emb, ids, block = self._prep_rows(emb, ids)
+        n_rows = emb.shape[0]
+        with self._lock:
+            if not (0 <= level < len(self._n_rows)):
+                raise KeyError(f"no such level in blob: {level}")
+            n_level = len(self._n_rows[level])
+            if level == 0 and node != 0:
+                raise KeyError("level 0 has only the root node")
+            if node == n_level:
+                # structural append: nodes are numbered densely per level
+                slot, commit = self._alloc_slot_locked(level, node, n_rows)
+            elif 0 <= node < n_level:
+                slot = self._slots[level][node]
+                if slot < 0:  # rewriting a released node re-allocates storage
+                    slot, commit = self._alloc_slot_locked(level, node, n_rows)
+                elif self._pins:
+                    # copy-on-write: a pinned snapshot may still read the
+                    # old block, so the update lands in a fresh slot and
+                    # the old one is retired until those pins release
+                    slot, commit = self._alloc_slot_locked(
+                        level, node, n_rows, retire=slot
+                    )
+                else:
+                    def commit() -> None:
+                        self._n_rows[level][node] = n_rows
+                        self._rewrite_header_locked()
+            else:
+                raise KeyError(
+                    f"blob nodes are dense per level: next node of lvl {level} "
+                    f"is {n_level}, got {node}"
+                )
+            os.pwrite(self._fd, block, self._offset(slot))
+            commit()
+
+    def _v2_candidate_locked(self, rows, slots, free, n_slots) -> tuple[bytes, dict]:
+        """Serialize a CANDIDATE v2 header (nothing mutates; an oversized
+        header raises here with file and in-memory maps untouched).  Both
+        structural mutators build their candidates through this one place
+        so the header schema cannot diverge between them."""
+        header = dict(self._header)
+        # the mutable form: /3 when this blob carries quantized companions
+        # (the "quant" section rides along in the header copy), else /2
+        header["format"] = "ecp-blob/3" if self.quant_format else "ecp-blob/2"
+        header["levels"] = rows
+        header["slots"] = slots
+        header["free_slots"] = free
+        header["n_slots"] = n_slots
+        raw = self._check_fits(json.dumps(header, sort_keys=True).encode("utf-8"))
+        return raw, header
+
+    def _install_v2_locked(self, raw: bytes, header: dict) -> None:
+        """Adopt a candidate header (in memory + on disk)."""
+        self.format = max(2, self.format)
+        self._header = header
+        self._n_rows = header["levels"]
+        self._slots = header["slots"]
+        self._free = header["free_slots"]
+        self._n_slots = header["n_slots"]
+        self._pwrite_header_locked(raw)
+
+    def ensure_capacity(self, level: int, new_nodes: int) -> None:
+        """Raise — without writing or mutating anything — if appending
+        ``new_nodes`` nodes at ``level`` could not fit the reserved header
+        region (covers the v1→v2 upgrade too).  Multi-node mutations
+        (leaf splits) pre-flight through this so a mid-sequence header
+        overflow can never strand already-written nodes."""
+        if new_nodes <= 0:
+            return
+        with self._lock:
+            if not (0 <= level < len(self._n_rows)):
+                raise KeyError(f"no such level in blob: {level}")
+            cand_slots = [list(lv) for lv in self._slots]
+            cand_rows = [list(lv) for lv in self._n_rows]
+            free = list(self._free)
+            n_slots = self._n_slots
+            for _ in range(new_nodes):
+                slot = free.pop(0) if free else n_slots
+                n_slots = max(n_slots, slot + 1)
+                cand_slots[level].append(slot)
+                cand_rows[level].append(0)
+            self._v2_candidate_locked(cand_rows, cand_slots, free, n_slots)
+
+    def _alloc_slot_locked(self, level: int, node: int, n_rows: int, *, retire: int | None = None):
+        """Pick a physical slot for a new/re-allocated node; the returned
+        commit closure installs the pre-serialized candidate header after
+        the block write succeeds.  ``retire`` is the node's previous slot
+        when this allocation is a copy-on-write around pinned snapshots:
+        it is dropped from the slot map but NOT freed — it joins the
+        retired list until every pin older than the install releases.
+        (Any slot already on the free list is safe to hand out: it was
+        unreferenced in every header a current pin could have pinned.)"""
+        new_node = node == len(self._n_rows[level])
+        slot = self._free[0] if self._free else self._n_slots
+        cand_slots = [list(lv) for lv in self._slots]
+        cand_rows = [list(lv) for lv in self._n_rows]
+        if new_node:
+            cand_slots[level].append(slot)
+            cand_rows[level].append(n_rows)
+        else:
+            cand_slots[level][node] = slot
+            cand_rows[level][node] = n_rows
+        raw, header = self._v2_candidate_locked(
+            cand_rows,
+            cand_slots,
+            [s for s in self._free if s != slot],
+            max(self._n_slots, slot + 1),
+        )
+
+        def commit() -> None:
+            self._install_v2_locked(raw, header)
+            if retire is not None and retire >= 0:
+                self._retired.append((self._mvcc_seq, retire))
+
+        return slot, commit
+
+    def append_rows(self, level: int, node: int, emb: np.ndarray, ids: np.ndarray) -> None:
+        """Grow a node in place.  The block layout is emb-rows-then-ids, so
+        growing rewrites the whole block (one pread + one pwrite); the
+        lock is held across the read-modify-write so concurrent appends
+        cannot lose each other's rows."""
+        with self._lock:
+            old_emb, old_ids = self.get_node(level, node)
+            emb = np.concatenate(
+                [old_emb.astype(self.emb_dtype), np.asarray(emb, self.emb_dtype)]
+            )
+            ids = np.concatenate([old_ids, np.asarray(ids, self.ids_dtype)])
+            self.write_node(level, node, emb, ids)
+
+    def delete_rows(self, level: int, node: int, drop_ids: np.ndarray) -> int:
+        with self._lock:
+            emb, ids = self.get_node(level, node)
+            if len(ids) == 0:
+                return 0
+            keep = ~np.isin(ids, np.asarray(drop_ids, ids.dtype))
+            removed = int((~keep).sum())
+            if removed:
+                self.write_node(level, node, emb[keep], ids[keep])
+            return removed
+
+    def free_slot(self, level: int, node: int) -> None:
+        """Release a node's block back to the free list; the node id stays
+        valid and reads as empty until something is written to it again.
+        With pinned snapshots outstanding the slot is retired instead of
+        freed (a pin taken before the release may still read it)."""
+        if not self._writable:
+            raise PermissionError(f"blob store opened read-only: {self.path}")
+        with self._lock:
+            self._check_key(level, node)
+            slot = self._slots[level][node]
+            if slot < 0 and self._n_rows[level][node] == 0:
+                return
+            retire = bool(self._pins) and slot >= 0
+            cand_slots = [list(lv) for lv in self._slots]
+            cand_rows = [list(lv) for lv in self._n_rows]
+            cand_slots[level][node] = -1
+            cand_rows[level][node] = 0
+            free = set(self._free)
+            if slot >= 0 and not retire:
+                free.add(slot)
+            raw, header = self._v2_candidate_locked(
+                cand_rows, cand_slots, sorted(free), self._n_slots
+            )
+            self._install_v2_locked(raw, header)
+            if retire:
+                self._retired.append((self._mvcc_seq, slot))
+
+    def _check_fits(self, raw: bytes) -> bytes:
+        if 16 + len(raw) > self.data_offset:
+            raise ValueError(
+                "blob header grew past the data region (more tombstones or "
+                "nodes than the reserved header pages can hold); compact() "
+                "the index or rebuild the blob with convert()"
+            )
+        return raw
+
+    def _pwrite_header_locked(self, raw: bytes) -> None:
+        """THE header write: every path (row updates, slot allocation,
+        free_slot, attrs) funnels through here so padding/length framing
+        can never diverge — and every install is a new MVCC version."""
+        self._mvcc_seq += 1
+        pad = b" " * (self.data_offset - 16 - len(raw))
+        os.pwrite(self._fd, BLOB_MAGIC + len(raw).to_bytes(8, "little") + raw + pad, 0)
+
+    # ------------------------------------------------- snapshot pinning (MVCC)
+    def pin(self) -> "BlobSnapshot":
+        """Pin the current header and return a read-only ``BlobSnapshot``
+        whose every read sees exactly this version of the index, no matter
+        what the writer does afterwards (in-place updates copy-on-write
+        around pinned slots; a compaction's ``os.replace`` cannot touch
+        the snapshot's dup'd fd).  Release with ``BlobSnapshot.close()``.
+
+        Retired-but-pinned slots live only in memory: a crash while pins
+        are outstanding leaks them from the persisted free list (harmless
+        — ``compact()`` rebuilds the file and reclaims everything)."""
+        with self._lock:
+            pin_id = self._next_pin
+            self._next_pin += 1
+            self._pins[pin_id] = self._mvcc_seq
+            return BlobSnapshot(self, pin_id)
+
+    def _release_pin(self, pin_id: int) -> None:
+        with self._lock:
+            self._pins.pop(pin_id, None)
+            self._recycle_locked()
+
+    def _recycle_locked(self) -> None:
+        """Return retired slots to the (in-memory) free list once no pin
+        predates their retirement; the persisted free list catches up on
+        the next header write."""
+        if not self._retired:
+            return
+        floor = min(self._pins.values()) if self._pins else None
+        still, freed = [], []
+        for seq, slot in self._retired:
+            # a pin at seq P sees the header as of P; the slot became
+            # unreferenced at seq > P only for pins with P < seq
+            if floor is None or seq <= floor:
+                freed.append(slot)
+            else:
+                still.append((seq, slot))
+        if freed:
+            self._retired = still
+            self._free = sorted(set(self._free) | set(freed))
+
+    def _serialize_header_locked(self) -> bytes:
+        self._header["levels"] = self._n_rows
+        if self.format >= 2:
+            self._header["format"] = "ecp-blob/3" if self.quant_format else "ecp-blob/2"
+            self._header["slots"] = self._slots
+            self._header["free_slots"] = self._free
+            self._header["n_slots"] = self._n_slots
+        return self._check_fits(json.dumps(self._header, sort_keys=True).encode("utf-8"))
+
+    def _rewrite_header_locked(self) -> None:
+        self._pwrite_header_locked(self._serialize_header_locked())
+
     def close(self) -> None:
         if getattr(self, "_fd", -1) >= 0:
             os.close(self._fd)
             self._fd = -1
+
+    def __del__(self):  # best-effort; close() is the real API
+        try:
+            self.close()
+        except OSError:
+            pass
+
+
+# ------------------------------------------------------------- blob snapshot
+class BlobSnapshot:
+    """A pinned, read-only view of one ``BlobStore`` version (the
+    ``SnapshotView`` of the serving subsystem).
+
+    Created by ``BlobStore.pin()`` under the store lock: it copies the
+    row-count/slot maps and info of the pinned header and dups the file
+    descriptor, so
+
+      * reads are lock-free and bit-identical to what the live store
+        would have returned at pin time — writers copy-on-write around
+        pinned slots, so the bytes under this view never change;
+      * it survives a blob compaction's ``os.replace`` (the dup'd fd
+        keeps the replaced file alive until the snapshot closes);
+      * N snapshot readers share one physical file with a single writer.
+
+    It speaks the read side of the ``Store`` protocol (``get_node``,
+    ``get_nodes``, ``node_rows``, ``read_attrs``, ``io``); every write
+    raises ``PermissionError``.  ``close()`` releases the pin (idempotent)
+    so the parent can recycle retired slots.
+    """
+
+    backend = "blob+snapshot"
+
+    def __init__(self, parent: BlobStore, pin_id: int):
+        # runs under the parent's (re-entrant) lock, inside pin()
+        self._parent = parent
+        self._pin_id = pin_id
+        self._fd = os.dup(parent._fd)
+        self.path = parent.path
+        self.io = IOStats()
+        self.pinned_seq = parent._mvcc_seq
+        self._n_rows = [list(lv) for lv in parent._n_rows]
+        self._slots = [list(lv) for lv in parent._slots]
+        self._info = dict(parent._header.get("info", {}))
+        self.generation = int(self._info.get(layout.GENERATION, 0))
+
+    # ------------------------------------------------------------ read side
+    def _check_key(self, level: int, node: int) -> None:
+        if not (0 <= level < len(self._n_rows)):
+            raise KeyError(f"no such level in blob snapshot: {level}")
+        if not (0 <= node < len(self._n_rows[level])):
+            raise KeyError(f"no such node in blob snapshot: lvl {level} node {node}")
+
+    def get_node(self, level: int, node: int) -> tuple[np.ndarray, np.ndarray]:
+        self._check_key(level, node)
+        n_rows = self._n_rows[level][node]
+        if n_rows == 0:
+            return self._parent._empty()
+        return self._parent._read_one(self._fd, self._slots[level][node], n_rows, self.io)
+
+    def get_nodes(self, keys: list) -> list:
+        out: list = [None] * len(keys)
+        entries = []
+        for i, (lv, nd) in enumerate(keys):
+            self._check_key(lv, nd)
+            if self._n_rows[lv][nd] == 0:
+                out[i] = self._parent._empty()
+            else:
+                entries.append((self._slots[lv][nd], self._n_rows[lv][nd], i))
+        self._parent._read_batch(self._fd, entries, out, self.io)
+        return out
+
+    def node_rows(self, keys: list) -> list[int]:
+        return [self._n_rows[lv][nd] for lv, nd in keys]
+
+    @property
+    def quant_format(self):
+        return self._parent.quant_format
+
+    def get_quantized(self, level: int, node: int, qformat: str = "int8") -> QuantNode:
+        self._check_key(level, node)
+        p = self._parent
+        n_rows = self._n_rows[level][node]
+        if p.quant_format is None:
+            if n_rows == 0:
+                return p._empty_quant(qformat)
+            emb, _ = self.get_node(level, node)
+            return encode_node(emb, qformat)
+        if n_rows == 0:
+            return p._empty_quant(p.quant_format)
+        return p._read_quant_one(self._fd, self._slots[level][node], n_rows, self.io)
+
+    def get_nodes_quantized(self, keys: list, qformat: str = "int8") -> list:
+        return [self.get_quantized(lv, nd, qformat) for lv, nd in keys]
+
+    def get_node_ids(self, level: int, node: int) -> np.ndarray:
+        self._check_key(level, node)
+        p = self._parent
+        n_rows = self._n_rows[level][node]
+        if n_rows == 0:
+            return np.zeros((0,), p.ids_dtype)
+        return p._read_ids_one(self._fd, self._slots[level][node], n_rows, self.io)
+
+    def get_node_rows(self, level: int, node: int, rows) -> tuple[np.ndarray, np.ndarray]:
+        self._check_key(level, node)
+        p = self._parent
+        rows = np.asarray(rows, np.int64)
+        n_rows = self._n_rows[level][node]
+        if len(rows) == 0:
+            return p._empty()
+        if rows[0] < 0 or rows[-1] >= n_rows:
+            raise IndexError(f"rows out of range for lvl {level} node {node}")
+        return p._read_rows_one(self._fd, self._slots[level][node], n_rows, rows, self.io)
+
+    def read_attrs(self, path: str) -> dict:
+        if path == layout.INFO:
+            return dict(self._info)
+        return {}
+
+    # ----------------------------------------------------------- write side
+    def _read_only(self, *_a, **_k):
+        raise PermissionError(
+            "blob snapshot is a pinned read-only view; mutate the live store"
+        )
+
+    write_attrs = write_node = append_rows = delete_rows = free_slot = _read_only
+
+    # ------------------------------------------------------------ lifecycle
+    @property
+    def closed(self) -> bool:
+        return self._fd < 0
+
+    def close(self) -> None:
+        if self._fd >= 0:
+            os.close(self._fd)
+            self._fd = -1
+            self._parent._release_pin(self._pin_id)
+
+    def __enter__(self) -> "BlobSnapshot":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def __del__(self):  # best-effort; close() is the real API
         try:
@@ -821,7 +1399,7 @@ def open_store(
     """
     if backend.endswith("+prefetch"):
         raise NotImplementedError(
-            "async prefetch stores are not ported yet (ROADMAP Queue 1: "
+            "async prefetch stores are not ported yet (ROADMAP Queue 1 #2: "
             "prefetch); open the index without '+prefetch'"
         )
     if isinstance(path, Store):

@@ -10,13 +10,14 @@ CUDA launch.
 
 Both kernels finish their top-k in the last block of a group of blocks
 (found by an atomic counter that block resets), through keys in a scratch
-buffer.  The scratch and the counters are allocated once per device
-and stream and grow when a call needs more (``workspace``); the
-shared-memory opt-in is read once per device.
+buffer.  The scratch and the counters are allocated once per device and
+stream and grow when a call needs more (``workspace``); the shared-memory
+opt-in is read once per device.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -30,11 +31,18 @@ QFORMAT_DTYPE = {"int8": torch.int8, "float16": torch.float16}
 DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 launches = {"distance_topk": 0, "grouped_distance_topk": 0}
+_launches_lock = threading.Lock()  # launches come from the serving workers' threads too
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 def _metric(metric: str) -> int:
@@ -128,7 +136,15 @@ def grouped_plan(N: int, D: int, k: int, itemsize: int, optin: int) -> tuple[int
 def workspace(device: torch.device, key_bytes: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Scratch key lists and zeroed counters for launches on ``device``'s
     current stream, kept and reused; grown (anew, zeroed) when too small.
-    The kernels leave every counter at 0."""
+    The kernels leave every counter at 0.
+
+    Threads that share a stream (the serving scheduler's workers all launch
+    on the default stream) share its workspace: their launches run in
+    stream order, so one kernel finishes with the scratch and leaves the
+    counters at 0 before the next starts.  A workspace that another
+    thread's growth replaces stays alive through the caller's reference,
+    and the caching allocator hands its memory out again only to work
+    queued on the same stream after it."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     ws = workspaces.get(key)
     if ws is None or ws[0].numel() < key_bytes or ws[1].numel() < counters:
@@ -196,7 +212,7 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "distance_topk")
-    launches["distance_topk"] += 1
+    _count_launch("distance_topk")
     return out_d, out_i
 
 
@@ -253,5 +269,5 @@ def grouped_distance_topk_tensors(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "grouped_distance_topk")
-    launches["grouped_distance_topk"] += 1
+    _count_launch("grouped_distance_topk")
     return out_d, out_i

@@ -109,3 +109,11 @@ except ImportError:
     _hyp.__is_repro_shim__ = True
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels have no CPU mode); "
+        "skipped without one",
+    )

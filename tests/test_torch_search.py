@@ -182,12 +182,12 @@ def test_cuda_is_asked_for_by_default(ref_blob):
 
 def test_unported_modes_say_so(ref_blob):
     _, blob, _ = ref_blob
-    for kw in ({"mode": "packed"}, {"mode": "auto"}, {"mode": "file", "engine": "legacy"},
-               {"mode": "file", "prefetch": True}):
+    for kw in ({"mode": "file", "engine": "legacy"}, {"mode": "file", "prefetch": True},
+               {"mode": "file", "backend": "blob+prefetch"}, {"mode": "file", "pin_internal": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             open_index(blob, device="cpu", **kw)
     idx = open_index(blob, mode="file", device="cpu")
-    for call in (idx.snapshot, lambda: idx.delete([1]), idx.compact,
+    for call in (lambda: idx.prefetch(1), lambda: idx.load_query("q_000000"),
                  lambda: idx.search(np.zeros(D, np.float32), 3).query.save()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
