@@ -37,6 +37,28 @@ Phases, none of whose failures is caught:
    shapes the built index gives them (its largest leaves), and traces one
    leaf-scorer call: one CUDA kernel launch.
    Then, before the main phase's files go:
+3a. read: the rest of the paper's read path on the same 200k index, each
+   result held against the main phase's.  (a) 32 of its queries through
+   ``open_index(blob, mode="file", backend="blob+prefetch",
+   quantized=True)``, search and ``next(100)`` bit-identical; then the same
+   through an ``AsyncPrefetchStore`` whose byte cap admits nodes of this
+   index (the default cap is below one node's slot estimate, so it
+   suppresses every key), asserting prefetches were issued; prints issued,
+   hits, wasted bytes and suppressed keys, and the grouped kernel's
+   launches.  (b) ``pin_internal=True``: every internal node pinned at
+   open, 8 searches read none.  (c) ``engine="legacy"``: as many queries as
+   fit ``LEGACY_S`` (timed on the first), search and ``next(100)``
+   bit-identical.  (d) ``Query.save`` on the fstore, ``load_query`` in a
+   fresh ``ECPIndex``, ``next(100)`` (the main phase's results) and then a
+   continuation past the saved candidates, fp and quantized (4 queries
+   each), identical to an fp engine's of its own on the blob; the unsaved
+   fp query's continuation is identical to it too, the unsaved quantized
+   one's equal up to the order of exactly equal distances (ROADMAP Queue 3).  (e), after the l2 phase: a ``MultiIndexSession`` over the
+   200k fstore (quantized) and the l2 phase's blob (fp, leaves through
+   ``make_kernel_scorer()``) under ``SESSION_BYTES``, below either index's
+   leaves: evictions above 0, results those of the phases that opened each
+   index alone (the kernel scorer's within the kernel tolerance); both
+   kernels' launches counted from 0.
 3b. serve: the serving path (``launch/serve.py``'s ``Server``) on the same
    200k collection.  (a) Interactive: the int8 v3 blob opened
    ``quantized=True``, 16 single-query searches (k=100, b=64) and 8
@@ -166,6 +188,13 @@ LOGIT_REL_TOL = 3e-2
 # with the causal mask off by one, five to ten flips, up to 0.38 apart.
 ARGMAX_GAP = 0.1
 N_DECODE = 16
+# the read path: a prefetch byte cap that admits nodes of the 200k blob
+# (its slot, the largest leaf's block, is 12.4 MB; the store's default cap
+# is 4 MiB), the seconds the legacy engine may take, and the shared budget
+# of the session, below either index's leaves (0.92 and 0.23 GB)
+PREFETCH_CAP = 256 << 20
+LEGACY_S = 30.0
+SESSION_BYTES = 64 << 20
 
 
 def log(*a) -> None:
@@ -267,25 +296,79 @@ def topk_bound_ms(B, N, k, dtype="float32", itemsize=4):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def device_time(fn, iters: int = 20, tries: int = 8) -> tuple[float, float]:
+def device_time(fn, iters: int = 20, tries: int = 8, *, whole: bool = True) -> tuple[float, float | None]:
     """(ms on the card per call, summed over the call's kernels; kernels per
-    call), from torch.profiler with CUDA activity around ``iters`` calls.
-    Copies and memsets are not kernels and are left out.  The profiler now
-    and then drops the records of kernels launched from the port's own
-    libraries (seen on the H100: 3 of 5 scorer calls' kernels, late in a
-    run), so a trace whose kernel count is not a positive multiple of
-    ``iters`` is taken again, up to ``tries`` times."""
+    call as the profiler saw them, or None), from torch.profiler with CUDA
+    activity around ``iters`` calls.  Copies and memsets are not kernels
+    and are left out.  The profiler now and then drops the records of
+    kernels launched from the port's own libraries (seen on the H100: 3 of
+    5 scorer calls' kernels late in a run; 18 of 20 in each of 8 traces),
+    so a trace whose kernel count is not a positive multiple of ``iters``
+    is taken again, up to ``tries`` times; if every trace came short, the
+    time is the mean of the records kept and the count is None: it was not
+    measured (``captured_kernels`` counts a call's kernels without the
+    profiler).  A library yardstick (``whole=False``) may launch a varying
+    number of kernels a call (seen on the H100: 538 for 20 calls of decode
+    + bmm + topk, in every trace), so any trace with kernels counts for it."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    counts = []
+    counts, best = [], []
     for _ in range(tries):
         ks = traced_kernels(fn, iters)
         counts.append(len(ks))
-        if ks and len(ks) % iters == 0:
+        if ks and (len(ks) % iters == 0 or not whole):
             return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters, len(ks) / iters
-    raise AssertionError(f"torch.profiler saw {counts} kernels in {tries} traces of {iters} calls")
+        best = max(best, ks, key=len)
+    assert 0 < len(best) < iters, f"torch.profiler saw {counts} kernels in {tries} traces of {iters} calls"
+    log(f"torch.profiler kept {counts} of {iters} one-kernel calls' records; the mean of the {len(best)} kept")
+    return sum(e.time_range.elapsed_us() for e in best) / 1e3 / len(best), None
+
+
+def captured_kernels(fn) -> int:
+    """The kernels one call of ``fn`` launches, counted without the
+    profiler: the call is captured on a side stream into a CUDA graph
+    (driver API, relaxed mode; the graph is never run) and its kernel nodes
+    are counted.  A warm call on the same stream comes first, so the
+    wrappers' per-stream workspaces and the allocator's blocks exist and
+    the captured call allocates nothing.  Copies and memsets are other
+    node types and are not counted."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, ref = ctypes.c_void_p, ctypes.byref
+
+    def ok(rc: int, what: str) -> None:
+        assert rc == 0, f"{what} returned CUresult {rc}"
+
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    h, graph = vp(s.cuda_stream), vp()
+    ok(cu.cuStreamBeginCapture_v2(h, ctypes.c_int(2)), "cuStreamBeginCapture")  # CU_STREAM_CAPTURE_MODE_RELAXED
+    try:
+        with torch.cuda.stream(s):
+            fn()
+    finally:
+        rc = cu.cuStreamEndCapture(h, ref(graph))
+    ok(rc, "cuStreamEndCapture")
+    try:
+        n = ctypes.c_size_t(0)
+        ok(cu.cuGraphGetNodes(graph, None, ref(n)), "cuGraphGetNodes")
+        nodes = (vp * max(1, n.value))()
+        ok(cu.cuGraphGetNodes(graph, nodes, ref(n)), "cuGraphGetNodes")
+        kinds = []
+        for i in range(n.value):
+            t = ctypes.c_int(-1)
+            ok(cu.cuGraphNodeGetType(vp(nodes[i]), ref(t)), "cuGraphNodeGetType")
+            kinds.append(t.value)
+    finally:
+        ok(cu.cuGraphDestroy(graph), "cuGraphDestroy")
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def traced_kernels(fn, iters: int) -> list:
@@ -310,8 +393,9 @@ def four_ways(kern, lib, iters: int) -> dict:
     """The wrapper call and the library yardstick, each under CUDA events
     (``ms``) and by the profiler's kernel time (``device_ms``)."""
     out = {"ms": cuda_ms(kern, iters), "library_ms": cuda_ms(lib, iters)}
-    out["device_ms"], out["kernels_per_call"] = device_time(kern)
-    out["library_device_ms"], out["library_kernels_per_call"] = device_time(lib)
+    out["device_ms"], out["profiled_kernels_per_call"] = device_time(kern)
+    out["kernels_per_call"] = captured_kernels(kern)
+    out["library_device_ms"], out["library_kernels_per_call"] = device_time(lib, whole=False)
     return out
 
 
@@ -535,9 +619,8 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
     log(f"[kernels] distance_topk B={B} N={N} k={k}: l2/ip/cosine f32, l2 f16/bf16 agree (max abs err {terr:.3g})")
     res["topk_err"] = terr
     mk = lambda: ops.distance_topk(qb, cb, k, "l2")
-    merge = {"ms": cuda_ms(mk, 5, 1),
-             "plain_ms": cuda_ms(lambda: ref.distance_topk_ref(qb, cb, k, "l2"), 5, 1),
-             "library_ms": cuda_ms(lambda: torch.topk(torch.mm(qb, cb.T), k, dim=1), 5, 1)}
+    merge = {**four_ways(mk, lambda: torch.topk(torch.mm(qb, cb.T), k, dim=1), 5),
+             "plain_ms": cuda_ms(lambda: ref.distance_topk_ref(qb, cb, k, "l2"), 5, 1)}
     merge["bound_ms"], merge["bound_by"] = topk_bound_ms(B, N, k)
     res["topk_merge"] = merge
     log(f"[kernels] distance_topk merge path B={B} N={N} D={D} f32 l2 k={k}: {json.dumps(merge)}")
@@ -601,6 +684,10 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
     torch.cuda.empty_cache()
 
     # ---- timing, four ways: the scorer's full selection, B=1, k=N_pad, f32, cosine
+    # the graph count sees every kernel of a call: two of PyTorch's own here
+    m = torch.zeros(1024, device="cuda")
+    two = captured_kernels(lambda: (m.add_(1), m.mul_(2)))
+    assert two == 2, f"a CUDA graph of two PyTorch kernels holds {two} kernel nodes"
     res["topk_by_n"] = {}
     for n_pad in (512, 1024, 5632):
         c = torch.from_numpy(rng.standard_normal((n_pad, D)).astype(np.float32)).cuda()
@@ -609,7 +696,12 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
                       lambda: torch.topk(torch.mm(qv, c.T), n_pad, dim=1), 100)
         t["plain_ms"] = cuda_ms(lambda: ref.distance_topk_ref(qv, c, n_pad, "cosine"), 50)
         t["bound_ms"], t["bound_by"] = topk_bound_ms(1, n_pad, n_pad)
-        assert t["kernels_per_call"] == 1.0, f"distance_topk makes {t['kernels_per_call']} launches a call"
+        n0 = ops.launches["distance_topk"]
+        ops.distance_topk(qv, c, n_pad, "cosine")
+        counted = ops.launches["distance_topk"] - n0
+        assert t["kernels_per_call"] == 1 and counted == 1, \
+            f"distance_topk makes {t['kernels_per_call']} kernels a call in a CUDA graph and counts {counted}"
+        assert t["profiled_kernels_per_call"] in (None, 1.0), f"the profiler saw {t['profiled_kernels_per_call']}"
         res["topk_by_n"][n_pad] = t
         log(f"[kernels] distance_topk B=1 N_pad={n_pad} D={D} f32 cosine k={n_pad}: {json.dumps(t)}")
     res["topk"] = res["topk_by_n"][512]
@@ -707,7 +799,8 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     log(f"[{tag}] grouped kernel a round: {pr['kernel']:.6f} ms against its bound {pr['kernel_bound']:.6f} ms "
         f"({pr['code_mb']:.3f} MB of codes a round at {HBM_BYTES_PER_S / 1e12} TB/s; "
         f"{pr['h2d_mb']:.3f} MB staged with the padding), {qt['rounds']} rounds")
-    return {"blob": blob, "store": bst, "fs": fs, "fp_ids": frs.ids}
+    return {"blob": blob, "store": bst, "fs": fs, "fp_ids": frs.ids, "n_items": len(data),
+            "ids": rs.ids, "dists": rs.dists, "nx_ids": nx.ids, "nx_dists": nx.dists}
 
 
 def grouped_on_index(bst, Q, res) -> None:
@@ -1141,6 +1234,199 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> 
         f"phase: {out['bytes_written']}; in the run so far: {w2}")
 
 
+# -------------------------------------------------------------- read path
+def same_rows(what: str, rs, ids, dists) -> None:
+    """``rs`` against rows of results computed earlier (``[R, k]``)."""
+    a_ids, a_d = np.atleast_2d(rs.ids), np.atleast_2d(rs.dists)
+    assert np.array_equal(a_ids, ids) and np.array_equal(a_d, dists), f"{what}: results differ"
+
+
+def same_up_to_ties(what: str, a, b) -> int:
+    """``a`` and ``b`` hold the same distances, and in every run of equal
+    distances the same ids; returns the positions whose id differs."""
+    assert np.array_equal(a.dists, b.dists), f"{what}: distances differ"
+    for r in range(len(b.dists)):
+        d = b.dists[r]
+        starts = np.flatnonzero(np.r_[True, d[1:] != d[:-1]])
+        for lo, hi in zip(starts, np.r_[starts[1:], len(d)]):
+            assert sorted(a.ids[r][lo:hi]) == sorted(b.ids[r][lo:hi]), f"{what}: row {r} ids differ at {lo}"
+    return int((a.ids != b.ids).sum())
+
+
+def prefetch_io(idx) -> dict:
+    """The prefetch store's counters once its background reads settled."""
+    idx.store.drain()
+    idx.flush_prefetch_stats()
+    io = idx.store.io
+    return {"issued": io.prefetch_issued, "hits": io.prefetch_hits, "wasted_bytes": io.prefetch_wasted_bytes,
+            "suppressed_keys": idx.store.prefetch_suppressed, "bytes_read": io.bytes_read,
+            "reads_issued": io.reads_issued}
+
+
+def phase_read_path(work: Path, Q, cfg, res: dict, built: dict) -> None:
+    """The rest of the paper's read path on the main phase's 200k index,
+    each result held against the main phase's own: (a) the async prefetch
+    store under quantized rounds, (b) pinned internal levels, (c) the
+    legacy engine, (d) saved queries."""
+    from repro_torch.core import AsyncPrefetchStore, ECPIndex, open_index, open_store
+    from repro_torch.kernels.distance_topk import ops
+
+    out = res.setdefault("read", {"part_s": {}, "launches": {}})
+    blob, fs = str(built["blob"]), str(built["fs"])
+    k, b = cfg.k, cfg.b
+    want_ids, want_d, nx_ids, nx_d = built["ids"], built["dists"], built["nx_ids"], built["nx_dists"]
+
+    # ---------------- (a) 32 queries through the async prefetch store, quantized
+    # the store's defaults, then a byte cap that admits nodes of this index
+    # (the default 4 MiB is below one node's slot estimate, the blob's
+    # fixed block of the largest leaf, so every key is suppressed)
+    n = 32
+    for tag in ("prefetch", "prefetch_cap"):
+        t0 = time.perf_counter()
+        if tag == "prefetch":
+            idx = open_index(blob, mode="file", backend="blob+prefetch", quantized=True)
+        else:
+            store = AsyncPrefetchStore(open_store(blob), max_inflight_bytes=PREFETCH_CAP)
+            idx = open_index(store, mode="file", quantized=True)
+        ops.reset_launches()
+        rs = idx.search(Q[:n], k, b=b)
+        nx = rs.query.next(k)
+        out["launches"][tag] = dict(ops.launches)
+        out[f"{tag}_io"] = prefetch_io(idx)
+        same_rows(f"read (a) {tag} search", rs, want_ids[:n], want_d[:n])
+        same_rows(f"read (a) {tag} next", nx, nx_ids[:n], nx_d[:n])
+        assert out["launches"][tag]["grouped_distance_topk"] > 0, out["launches"][tag]
+        idx.close()
+        idx.store.close()  # a caller's store stays open after the index closes
+        out["part_s"][tag] = time.perf_counter() - t0
+        log(f"[read] (a) {tag}: {n} queries + next({k}) bit-identical to the main phase in "
+            f"{out['part_s'][tag]:.3f} s; prefetch {json.dumps(out[f'{tag}_io'])}; launches {out['launches'][tag]}")
+    assert out["prefetch_cap_io"]["issued"] > 0, out["prefetch_cap_io"]
+
+    # ---------------- (b) pinned internal levels: a search reads no internal node
+    t0 = time.perf_counter()
+    idx = open_index(blob, mode="file", quantized=True, pin_internal=True)
+    pinned, before = idx.cache.n_pinned, idx.store.io.internal_reads
+    assert pinned == idx.info.nodes_per_level[0], (pinned, idx.info.nodes_per_level)
+    ops.reset_launches()
+    rs = idx.search(Q[:8], k, b=b)
+    out["launches"]["pin_internal"] = dict(ops.launches)
+    internal = idx.store.io.internal_reads - before
+    same_rows("read (b) pin_internal search", rs, want_ids[:8], want_d[:8])
+    assert internal == 0, internal
+    assert out["launches"]["pin_internal"]["grouped_distance_topk"] > 0
+    idx.close()
+    out["pin_internal"] = {"pinned_nodes": pinned, "internal_reads": internal}
+    out["part_s"]["pin_internal"] = time.perf_counter() - t0
+    log(f"[read] (b) pin_internal: {pinned} internal nodes pinned at open, 8 searches read {internal} internal "
+        f"nodes, bit-identical, in {out['part_s']['pin_internal']:.3f} s")
+
+    # ---------------- (c) the legacy engine: timed on one query, then as many as fit LEGACY_S
+    t0 = time.perf_counter()
+    leg = open_index(blob, mode="file", engine="legacy")
+    times = []
+    for r in range(8):
+        t1 = time.perf_counter()
+        rs = leg.search(Q[r], k, b=b)
+        nx = rs.query.next(k)
+        times.append(time.perf_counter() - t1)
+        same_rows(f"read (c) legacy search {r}", rs, want_ids[r : r + 1], want_d[r : r + 1])
+        same_rows(f"read (c) legacy next {r}", nx, nx_ids[r : r + 1], nx_d[r : r + 1])
+        if sum(times) + times[0] > LEGACY_S:
+            break
+    leg.close()
+    out["legacy"] = {"queries": len(times), "s_per_query": times}
+    out["part_s"]["legacy"] = time.perf_counter() - t0
+    log(f"[read] (c) legacy engine: {len(times)} queries + next({k}) bit-identical to the flat engine; seconds "
+        f"each {[round(t, 3) for t in times]}")
+
+    # ---------------- (d) saved queries on the fstore form, fp and quantized
+    # after next(k), a continuation past the candidates the saved state
+    # holds, which the restored query must find by traversing on; the
+    # oracle of both is an fp engine of its own over the blob form
+    t0 = time.perf_counter()
+    out["saved"] = {}
+    deep = oracle = None
+    for quantized in (False, True):
+        tag = "quantized" if quantized else "fp"
+        rs = open_index(fs, mode="file", quantized=quantized).search(Q[:4], k, b=b)
+        same_rows(f"read (d) {tag} search on the fstore", rs, want_ids[:4], want_d[:4])
+        token = rs.query.save(name=f"smoke_{tag}")
+        fresh = ECPIndex(fs, quantized=quantized)
+        restored = fresh.load_query(token)
+        ops.reset_launches()
+        nx = restored.next(k)
+        if deep is None:
+            deep = max(len(st.I) for st in restored.states) + 1
+        far = restored.next(deep)
+        out["launches"][f"saved_{tag}"] = dict(ops.launches)
+        same_rows(f"read (d) {tag} restored next", nx, nx_ids[:4], nx_d[:4])
+        same_rows(f"read (d) {tag} unsaved next", rs.query.next(k), nx_ids[:4], nx_d[:4])
+        unsaved = rs.query.next(deep)
+        if oracle is None:
+            with open_index(blob, mode="file", quantized=False) as fp:
+                ors = fp.search(Q[:4], k, b=b)
+                same_rows("read (d) oracle next", ors.query.next(k), nx_ids[:4], nx_d[:4])
+                oracle = ors.query.next(deep)
+        same_rs(f"read (d) {tag} restored next({deep}) vs the oracle's", far, oracle)
+        if quantized:
+            # the unsaved quantized query scans the leaves its earlier call
+            # read in full on the fp path, staged before the increment's
+            # quantized leaves: rows of different leaves at exactly equal
+            # distances then come out in another order, in both packages
+            # (ROADMAP Queue 3)
+            swapped = same_up_to_ties(f"read (d) {tag} unsaved next({deep}) vs the oracle's", unsaved, oracle)
+        else:
+            same_rs(f"read (d) {tag} unsaved next({deep}) vs the oracle's", unsaved, oracle)
+            swapped = 0
+        out["saved"][tag] = {"deep_k": deep, "rounds": sum(st.stats.rounds for st in restored.states),
+                             "unsaved_tie_swaps": swapped}
+        fresh.close()
+    assert out["launches"]["saved_quantized"]["grouped_distance_topk"] > 0, out["launches"]
+    out["saved_bytes"] = sum(p.stat().st_size for p in (built["fs"] / "query_states").rglob("*") if p.is_file())
+    out["part_s"]["save_load"] = time.perf_counter() - t0
+    log(f"[read] (d) Query.save -> load_query in a fresh ECPIndex -> next({k}) (4 queries each, the main phase's "
+        f"results), then next({deep}), past the saved candidates (an fp engine's on the blob; the unsaved fp "
+        f"query's too, the unsaved quantized one's up to the order of equal distances): {json.dumps(out['saved'])}; {out['saved_bytes']} bytes of saved "
+        f"state; launches {out['launches']['saved_quantized']}; {out['part_s']['save_load']:.3f} s")
+
+
+def phase_session(Q, Q2, res: dict, built: dict, built2: dict, cfg) -> None:
+    """(e) ``MultiIndexSession``: the 200k index (quantized, its fstore) and
+    the l2 phase's 50k index (fp, leaves scored by ``make_kernel_scorer``)
+    under one byte budget below either index's leaves: evictions above 0,
+    and each index answers as the phases that opened it alone did."""
+    from repro_torch.core import MultiIndexSession, make_kernel_scorer
+    from repro_torch.kernels.distance_topk import ops
+
+    out = res["read"]
+    k, b, n = cfg.k, cfg.b, 8
+    # the leaves as the cache holds them: float32 rows and int64 ids
+    leaf_bytes = [x["n_items"] * (cfg.dim * 4 + 8) for x in (built, built2)]
+    assert SESSION_BYTES < min(leaf_bytes), (SESSION_BYTES, leaf_bytes)
+    t0 = time.perf_counter()
+    with MultiIndexSession(cache_bytes=SESSION_BYTES) as sess:
+        big = sess.open(str(built["fs"]), name="main", quantized=True)
+        small = sess.open(str(built2["blob"]), name="l2", scorer=make_kernel_scorer())
+        ops.reset_launches()
+        for r in range(0, n, 2):  # the two indexes in turns, two queries a call
+            a = big.search(Q[r : r + 2], k, b=b)
+            c = small.search(Q2[r : r + 2], k, b=b)
+            same_rows(f"read (e) session main rows {r}", a, built["ids"][r : r + 2], built["dists"][r : r + 2])
+            compare_topk(f"read (e) session l2 rows {r} (kernel scorer) vs the l2 phase", c.dists, c.ids,
+                         built2["dists"][r : r + 2], built2["ids"][r : r + 2])
+            assert sess.cache.resident_bytes <= SESSION_BYTES
+        out["launches"]["session"] = dict(ops.launches)
+        st = sess.stats()
+    assert st["evictions"] > 0, st
+    assert all(v > 0 for v in out["launches"]["session"].values()), out["launches"]["session"]
+    out["session"] = {"budget_bytes": SESSION_BYTES, "leaf_bytes": leaf_bytes, **st}
+    out["part_s"]["session"] = time.perf_counter() - t0
+    log(f"[read] (e) MultiIndexSession, budget {SESSION_BYTES} B (leaves {leaf_bytes} B): {n} queries "
+        f"each, main bit-identical, l2 within the kernel tolerance; stats {json.dumps(st)}; launches "
+        f"{out['launches']['session']}; {out['part_s']['session']:.3f} s")
+
+
 # ------------------------------------------------------------ flash kernel
 def flash_ops(B, Hq, Sq, Skv, d, lens, causal) -> int:
     """Operations one call needs: 4*d (two multiply-adds) per live (query
@@ -1336,7 +1622,11 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
     t32 = flash_turns(lambda: ops.flash_attention(q32, k32, v32), lambda: ops.flash_attention_mma(q32, k32, v32), 3, 1)
     # the plain version of the whole call would hold [1, 24, S, S] float32 scores: 103 GB
     t32["plain_ms"] = None
-    t32["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qc, k32, v32, is_causal=True, enable_gqa=True), 5, 1)
+    sdpa32 = lambda: F.scaled_dot_product_attention(qc, k32, v32, is_causal=True, enable_gqa=True)
+    t32["library_ms"] = cuda_ms(sdpa32, 5, 1)
+    t32["device_ms"], t32["profiled_kernels_per_call"] = device_time(lambda: ops.flash_attention(q32, k32, v32), 3)
+    t32["kernels_per_call"] = captured_kernels(lambda: ops.flash_attention(q32, k32, v32))
+    t32["library_device_ms"], t32["library_kernels_per_call"] = device_time(sdpa32, 3, whole=False)
     t32["bound_ms"], t32["bound_by"] = flash_bound_ms(1, Hq, Hkv, S, S, d, None, True, 2)
     n32 = flash_ops(1, Hq, S, S, d, None, True)
     t32["tflops_counted"], t32["tflops_issued"] = tflops(n32, t32["ms"]), 1.5 * tflops(n32, t32["ms"])
@@ -1599,15 +1889,21 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
         scorer_on_index(built["store"], Q, res)
         assert res["main"]["bit_identical"], "quantized search differs from the fp engine"
         log(f"[main] phase done at {time.time() - t_all:.1f} s")
+        phase_read_path(work, Q, cfg, res, built)
+        log(f"[read] (a)-(d) done at {time.time() - t_all:.1f} s")
         phase_serve(work, data, Q, cfg, res, built, args.seed)
         log(f"[serve] phase done at {time.time() - t_all:.1f} s")
-        shutil.rmtree(work / "main_fs")
-        (work / "main.blob").unlink()
+        (work / "main.blob").unlink()  # the fstore stays for the session, (e)
         cfg2 = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.l2_items, "metric": "l2"})
         x, _ = clustered_vectors(args.seed + 1, n=cfg2.n_items + cfg2.serve_batch, dim=cfg2.dim)
-        run_path("l2", work, x[: cfg2.n_items], x[cfg2.n_items :], cfg2, res, scorer_rows=16)
+        Q2 = x[cfg2.n_items :]
+        built2 = run_path("l2", work, x[: cfg2.n_items], Q2, cfg2, res, scorer_rows=16)
         assert res["l2"]["bit_identical"], "l2: quantized search differs from the fp engine"
         log(f"[l2] phase done at {time.time() - t_all:.1f} s")
+        phase_session(Q, Q2, res, built, built2, cfg)
+        log(f"[read] (e) done at {time.time() - t_all:.1f} s; read path seconds by part "
+            f"{json.dumps(res['read']['part_s'])}")
+        shutil.rmtree(work / "main_fs")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     fault_libs = load_faults(fault_builds, "flash_attention_wgmma")
@@ -1631,7 +1927,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "main_path_per_round": {"kernel_ms": pr["kernel"], "bound_ms": pr["kernel_bound"],
                                  "code_mb": pr["code_mb"], "rounds": res["main"]["quant_times"]["rounds"]},
          "serve_launches": {p: res["serve"][f"{p}_launches"]["grouped_distance_topk"]
-                            for p in ("interactive", "concurrent")}},
+                            for p in ("interactive", "concurrent")},
+         "read_path_launches": {p: v["grouped_distance_topk"] for p, v in res["read"]["launches"].items()}},
         {"name": "distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
@@ -1641,7 +1938,9 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          **{a: t[a] for a in four}, "shape": "B=1 N_pad=512 D=1152 f32 cosine k=512",
          "by_n_pad": {n: {a: v[a] for a in ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")}
                       for n, v in res["topk_by_n"].items()},
-         "scorer_call": res["scorer_call"]},
+         "scorer_call": res["scorer_call"],
+         "read_path_launches": {"session": res["read"]["launches"]["session"]["distance_topk"]},
+         "merge_path": {**res["topk_merge"], "shape": "B=128 N=65536 D=1152 f32 l2 k=100"}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
@@ -1650,6 +1949,7 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "bound_ms": f32k["bound_ms"], "bound_by": f32k["bound_by"], "library_ms": f32k["library_ms"],
          "shape": "B=1 Hq=24 Hkv=8 S=32768 d=128 bf16 causal", "plain_shape": "S=4096 (else the same)",
          "max_row_rel_err": res["flash_row_err"], "mma_sync_ms": f32k["mma_sync_ms"],
+         **{a: f32k[a] for a in four},
          "tflops_counted": f32k["tflops_counted"], "tflops_issued": f32k["tflops_issued"],
          "ms_4k": res["flash_4k"]["ms"], "mma_sync_ms_4k": res["flash_4k"]["mma_sync_ms"],
          "ptxas": res.get("wgmma_ptxas")},

@@ -3,6 +3,8 @@ packed-mode retrieval.
 
   open_index(path, mode)          — file | packed | auto searcher factory
                                     ("auto", the default, is packed on a GPU)
+  MultiIndexSession               — N indexes under one shared byte-budget
+                                    NodeCache (global LRU, live-resizable)
   build_index / ECPBuildConfig    — one-shot top-down construction
   build_index_streaming           — out-of-core build from a chunk iterator,
                                     bit-identical to the one-shot build
@@ -10,20 +12,26 @@ packed-mode retrieval.
                                     search; quantized=True scores leaves on
                                     the device with one grouped kernel launch
                                     per traversal round; a MutableIndex:
-                                    insert, delete, compact
+                                    insert, delete, compact; engine="legacy"
+                                    is the tuple-heap parity oracle;
+                                    save/load_query persist a query's state
   ECPSnapshot / BlobSnapshot      — generation-pinned read-only views for
                                     concurrent serving (ECPIndex.snapshot /
                                     BlobStore.pin)
   BatchedSearcher / BatchedQuery  — level-synchronous batched search of the
                                     whole hierarchy resident on the device
   load_packed / PackedIndex       — dense view of the hierarchy
-  Store / open_store / convert    — fstore and blob (v1/v2/v3) backends
+  Store / open_store / convert    — fstore and blob (v1/v2/v3) backends,
+                                    and AsyncPrefetchStore (threaded
+                                    prefetch, throttled by its accuracy)
 """
 from .api import (
+    MultiIndexSession,
     MutableIndex,
     NodeCache,
     Query,
     QueryClosedError,
+    RestartQuery,
     ResultSet,
     Searcher,
     SearchStats,
@@ -35,10 +43,12 @@ from .build import ECPBuildConfig, build_index
 from .frontier import CandidateBuffer, Frontier
 from .fstore import FStore
 from .layout import IndexInfo, derive_shape
+from .legacy import LegacyQueryState
 from .lifecycle import build_index_streaming, reservoir_sample
 from .packed import PackedIndex, load_packed
 from .search import ECPIndex, ECPQuery, ECPSnapshot, QueryState, make_kernel_scorer
 from .store import (
+    AsyncPrefetchStore,
     BlobSnapshot,
     BlobStore,
     FStoreBackend,
@@ -54,17 +64,20 @@ __all__ = [
     "MutableIndex",
     "ResultSet",
     "Query",
+    "RestartQuery",
     "QueryClosedError",
     "StaleQueryError",
     "SearchStats",
     "IOStats",
     "NodeCache",
     "open_index",
+    "MultiIndexSession",
     "Store",
     "open_store",
     "convert",
     "FStoreBackend",
     "BlobStore",
+    "AsyncPrefetchStore",
     "ECPBuildConfig",
     "build_index",
     "build_index_streaming",
@@ -82,6 +95,7 @@ __all__ = [
     "ECPSnapshot",
     "BlobSnapshot",
     "QueryState",
+    "LegacyQueryState",
     "Frontier",
     "CandidateBuffer",
     "NodeNormCache",

@@ -6,17 +6,23 @@
     query, ``[B, k]`` for a batch; short result lists are padded with
     ``+inf``/``-1``), per-query ``SearchStats``, and the ``Query`` handle
     that owns the incremental state.
-  * ``Query``      — handle with ``.next(k)`` and ``.close()``; a closed
-    handle raises ``QueryClosedError``.
+  * ``Query``      — handle with ``.next(k)`` (more results), ``.save()``
+    (persist the frontier into the index's own file structure, eCP-FS
+    only), and ``.close()``; a closed handle raises ``QueryClosedError``.
+  * ``RestartQuery`` — the continuation for searchers without native
+    incremental state: ``.next(k)`` re-searches with ``emitted + k`` and
+    returns the tail (the paper's restart protocol for IVF/HNSW/DiskANN).
   * ``MutableIndex`` — protocol of a searcher whose index mutates while
     serving (``insert`` / ``delete`` / ``compact``).
   * ``open_index(path, mode="file"|"packed"|"auto")`` — the file-structure
     searcher (``ECPIndex``) or the device-resident one
     (``BatchedSearcher``); "auto" (the default) picks packed mode when the
     device is a GPU, as the reference does on any accelerator.
+  * ``MultiIndexSession`` — N indexes under ONE shared byte-budget
+    ``NodeCache``: a global LRU across indexes, runtime-resizable (the
+    paper's §4.2 knob made fleet-wide).
 
-Not ported yet (ROADMAP Queue 1): ``MultiIndexSession``, ``RestartQuery``
-(baselines), federations.
+Not ported yet (ROADMAP Queue 1 #8): federations.
 """
 from __future__ import annotations
 
@@ -37,11 +43,13 @@ __all__ = [
     "NodeCache",
     "ResultSet",
     "Query",
+    "RestartQuery",
     "QueryClosedError",
     "StaleQueryError",
     "Searcher",
     "MutableIndex",
     "open_index",
+    "MultiIndexSession",
     "pack_rows",
 ]
 
@@ -370,6 +378,41 @@ class Query:
         self._closed = True
 
 
+class RestartQuery(Query):
+    """Continuation for searchers with no native incremental state.
+
+    ``next(k)`` re-runs the underlying search asking for ``emitted + k``
+    results and returns the tail — the paper's restart protocol for
+    IVF / HNSW / DiskANN in the incremental workload (§5, Table 4).
+    """
+
+    def __init__(self, searcher: "Searcher", q: np.ndarray, k: int, *, b=None, opts: dict | None = None):
+        self._searcher = searcher
+        self._q = np.asarray(q)
+        self._b = b
+        self._opts = dict(opts or {})
+        self._emitted = k
+
+    def next(self, k: int) -> ResultSet:
+        self._ensure_open()
+        want = self._emitted + k
+        rs = self._searcher.search(self._q, want, b=self._b, **self._opts)
+        lo = self._emitted
+        self._emitted = want
+        if rs.batched:
+            d, i = rs.dists[:, lo:want], rs.ids[:, lo:want]
+        else:
+            d, i = rs.dists[lo:want], rs.ids[lo:want]
+        # re-pad to exactly k
+        if i.shape[-1] < k:
+            pad = k - i.shape[-1]
+            pd = np.full(i.shape[:-1] + (pad,), np.inf, np.float32)
+            pi = np.full(i.shape[:-1] + (pad,), -1, np.int64)
+            d = np.concatenate([d, pd], axis=-1)
+            i = np.concatenate([i, pi], axis=-1)
+        return ResultSet(dists=d, ids=i, stats=rs.stats, query=self)
+
+
 # ----------------------------------------------------------------- protocol
 @runtime_checkable
 class Searcher(Protocol):
@@ -428,6 +471,16 @@ def open_index(
     ``device`` is where the device work runs ("cuda" by default; "cpu"
     runs the plain PyTorch versions).  Extra keywords flow to the opened
     class (``quantized=``, ``probe_m=``, ``scorer=`` ...).
+
+    So on a GPU, ``open_index(path)`` opens packed mode, as the reference
+    does on any accelerator, and two things follow.  Its leaves differ from
+    file mode's at the same ``b``: the level-synchronous beam ranks every
+    leaf, where best-first opens the children of the nearest few level-1
+    nodes, so the two return different top-k lists (``PERF.md`` gives the
+    share they hold in common at the paper's widths).  And packed mode refuses an index holding
+    tombstones (``load_packed`` raises ``ValueError`` until ``compact()``),
+    so "auto" on a GPU raises on an index with deletes; ``mode="file"``
+    searches it.
     """
     if mode not in ("file", "packed", "auto"):
         raise ValueError(f"unknown open_index mode: {mode!r} (file|packed|auto)")
@@ -478,3 +531,104 @@ def open_index(
     finally:
         store.close()
     return batched.BatchedSearcher(packed, device=device, **kw)
+
+
+# ------------------------------------------------------------------ session
+class MultiIndexSession:
+    """N indexes under one shared byte-budget node cache (paper §1, §6.1).
+
+    Every index opened through the session shares a single globally-LRU
+    ``NodeCache`` budgeted in bytes; a node loaded for any index can evict
+    the coldest node of any other.  The budget is runtime-resizable —
+    the paper's "limit changeable at run-time" made fleet-wide.
+
+        sess = MultiIndexSession(cache_bytes=8 << 20)
+        lifelog = sess.open("/idx/lifelog")
+        docs = sess.open("/idx/docs")
+        rs = lifelog.search(q, k=10, b=8)
+        sess.resize(cache_bytes=2 << 20)     # shrink the whole fleet live
+    """
+
+    def __init__(
+        self,
+        *,
+        cache_bytes: int | None = None,
+        cache_nodes: int | None = None,
+    ):
+        self.cache = NodeCache(cache_nodes, max_bytes=cache_bytes)
+        self._indexes: dict[str, Searcher] = {}
+
+    def open(self, path, name: str | None = None, *, mode: str = "file", **kw) -> Searcher:
+        """Open an index under the shared cache and register it by name."""
+        if name is None:
+            name = str(path).rstrip("/").rsplit("/", 1)[-1]
+        if name in self._indexes:
+            raise ValueError(f"index name already open in session: {name!r}")
+        if mode == "file":
+            s = open_index(path, mode="file", cache=self.cache, namespace=name, **kw)
+        else:
+            # packed/auto indexes are device-resident; they do not draw from
+            # the shared node budget but stay addressable via the session.
+            s = open_index(path, mode=mode, **kw)
+        self._indexes[name] = s
+        return s
+
+    def __getitem__(self, name: str) -> Searcher:
+        return self._indexes[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._indexes
+
+    def names(self) -> list[str]:
+        return list(self._indexes)
+
+    def search(self, name: str, q, k: int = 100, *, b=None, **opts) -> ResultSet:
+        return self._indexes[name].search(q, k, b=b, **opts)
+
+    def resize(self, *, cache_bytes=_UNSET, cache_nodes=_UNSET) -> None:
+        self.cache.resize(cache_nodes, max_bytes=cache_bytes)
+
+    def stats(self) -> dict:
+        per = self.cache.namespace_stats()
+        return {
+            "indexes": self.names(),
+            "resident_nodes": self.cache.n_resident,
+            "resident_bytes": self.cache.resident_bytes,
+            "budget_bytes": self.cache.max_bytes,
+            "hits": self.cache.hits,
+            "misses": self.cache.misses,
+            "evictions": self.cache.evictions,
+            "per_index": {
+                n: {"nodes": per.get(n, (0, 0))[0], "bytes": per.get(n, (0, 0))[1]}
+                for n in self._indexes
+            },
+        }
+
+    def invalidate(self, name: str) -> int:
+        """Resynchronize one index whose files changed on disk outside
+        this process: refresh its in-memory metadata/root/tombstones when
+        the searcher supports it (``ECPIndex.refresh``), and drop its
+        cached nodes.  Indexes opened through the session invalidate
+        themselves on their own writes — this is for external writers."""
+        s = self._indexes.get(name)
+        refresh = getattr(s, "refresh", None)
+        if refresh is not None:
+            refresh()  # includes invalidate_namespace(name)
+            return 0
+        return self.cache.invalidate_namespace(name)
+
+    def close(self) -> None:
+        """Close every index opened through the session (freeing prefetch
+        executors and store fds) and drop the shared cache."""
+        for s in self._indexes.values():
+            close = getattr(s, "close", None)
+            if close is not None:
+                close()
+        self._indexes.clear()
+        self.cache.clear()
+
+    def __enter__(self) -> "MultiIndexSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

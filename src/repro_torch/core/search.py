@@ -42,22 +42,28 @@ core/lifecycle.py, serialized on ``_mut_lock``), and ``snapshot()`` on a
 blob returns an ``ECPSnapshot``: a generation-pinned read-only view that
 N threads may search at once.
 
-Not ported yet (ROADMAP Queue 1): ``engine="legacy"``, ``Query.save`` /
-``load_query``, prefetch and ``pin_internal`` — each raises
-``NotImplementedError``.
+The rest of the reference's read path, host side as there:
+``ECPIndex(engine="legacy")`` runs the tuple-heap engine of core/legacy.py
+(the parity oracle; fp only); a ``"<name>+prefetch"`` backend loads the
+nearest children of each expansion in the background, quantized rounds
+included; ``pin_internal=True`` keeps every internal level in the cache's
+pinned region; ``Query.save`` / ``ECPIndex.load_query`` persist a query's
+state in an fstore in the reference's schema, so a query saved by either
+package resumes in the other.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import layout, lifecycle
+from . import layout, legacy, lifecycle
 from .api import NodeCache, Query, ResultSet, SearchStats, StaleQueryError, pack_rows
 from .distances import np_distances
 from .frontier import CandidateBuffer, Frontier
@@ -74,15 +80,15 @@ __all__ = [
     "make_kernel_scorer",
 ]
 
-ENGINES = ("flat",)
+# when expanding an internal node, asynchronously prefetch this many of its
+# nearest not-yet-resident children (only with a prefetch-capable store)
+PREFETCH_FANOUT = 8
+
+ENGINES = ("flat", "legacy")
 
 # per-query cap on the exact-distance watermark array the quantized scan
 # keeps for cross-leaf pruning (QueryState.best_d)
 BEST_D_CAP = 4096
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 #{item})")
 
 
 def _kernel_ops():
@@ -331,7 +337,7 @@ class ECPQuery(Query):
     @property
     def batch_stats(self) -> SearchStats | None:
         """Aggregate counters of the round-based batch engine (None for
-        single-query handles): ``rounds``, actual deduped
+        single-query and legacy handles): ``rounds``, actual deduped
         ``node_loads``, ``dedup_hits`` (loads saved by cross-query
         sharing), and the store ``io`` delta of the whole batch."""
         self._ensure_open()
@@ -350,9 +356,48 @@ class ECPQuery(Query):
         rows = self._index._next_rows(self._states, k, self._batch_stats)
         return self._index._result(rows, self._states, k, self._single, self)
 
-
+    # -------------------------------------------------------- persistence
     def save(self, name: str | None = None, *, group: str = "query_states") -> str:
-        raise _todo("Query.save / load_query", "3")
+        """Persist all row states; returns the token ``load_query`` takes."""
+        self._ensure_open()
+        store = self._index.state_store
+        if name is None:
+            existing = set(store.listdir(group)) if store.exists(group) else set()
+            n = 0
+            while f"q_{n:06d}" in existing:
+                n += 1
+            name = f"q_{n:06d}"
+        g = f"{group}/{name}"
+        store.create_group(g, attrs={"n_rows": len(self._states), "single": self._single})
+        for r, qs in enumerate(self._states):
+            rg = f"{g}/row_{r:06d}"
+            store.create_group(rg)
+            store.write_array(f"{rg}/query", qs.q)
+            d, i, t = self._index._export_state(qs)
+            store.write_array(f"{rg}/item_dists", d)
+            store.write_array(f"{rg}/item_ids", i)
+            store.write_array(f"{rg}/frontier", t)
+            # spill dedup state: ids ever committed/emitted, so a restored
+            # continuation can never re-emit a replica's id
+            if isinstance(qs, legacy.LegacyQueryState):
+                seen = np.asarray(sorted(qs.seen), np.int64)
+            else:
+                seen = qs.I.export_seen()
+            if len(seen):
+                store.write_array(f"{rg}/seen_ids", seen)
+            store.write_attrs(
+                rg,
+                {
+                    "b": qs.b,
+                    "mx_inc": qs.mx_inc,
+                    "increments": qs.increments,
+                    "emitted": qs.emitted,
+                    "started": qs.started,
+                    "exclude": sorted(int(x) for x in qs.exclude),
+                    "probe_m": qs.probe_m,
+                },
+            )
+        return name
 
     def close(self) -> None:
         self._states = []
@@ -364,9 +409,16 @@ class ECPIndex:
     """Open an eCP-FS file structure for retrieval (the ``Searcher`` for
     file mode: bounded memory, true incremental continuation).
 
+    ``engine`` picks the traversal implementation: ``"flat"`` (default —
+    flat-array frontier, batched rounds, scorer hook) or ``"legacy"`` (the
+    original tuple-heap engine, kept as parity oracle).  Both return
+    bit-identical results.
+
     ``device`` ("cuda" by default; "cpu" only when asked) is where the
     quantized scan's grouped kernel runs; without CUDA, "cuda" raises.
     """
+
+    prefetch_fanout = PREFETCH_FANOUT
 
     def __init__(
         self,
@@ -378,6 +430,7 @@ class ECPIndex:
         namespace: str | None = None,
         cache_max_nodes: int | None = None,
         cache_max_bytes: int | None = None,
+        prefetch_workers: int = 4,
         engine: str = "flat",
         scorer=None,
         batch_matrix: bool = False,
@@ -388,22 +441,31 @@ class ECPIndex:
         probe_m: int = 1,
         device="cuda",
     ):
-        if engine == "legacy":
-            raise _todo("engine='legacy'", "3")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine: {engine!r} ({'|'.join(ENGINES)})")
-        if prefetch:
-            raise _todo("prefetch", "2")
-        if pin_internal:
-            raise _todo("pin_internal", "3")
+        if quantized and engine == "legacy":
+            raise ValueError(
+                "quantized scans run on the round-based flat engine only; "
+                "engine='legacy' is the fp32 parity oracle"
+            )
         if isinstance(quantized, str) and quantized not in QFORMATS:
             raise ValueError(
                 f"unknown quant format: {quantized!r} ({'|'.join(QFORMATS)})"
             )
         self.device = resolve_device(device)
         self._owns_store = not isinstance(path, Store)
-        self._reopen = dict(path=path, backend=backend) if self._owns_store else None
-        self.store = path if isinstance(path, Store) else open_store(path, backend=backend)
+        self._reopen = (
+            dict(path=path, backend=backend, prefetch=prefetch,
+                 prefetch_workers=prefetch_workers)
+            if self._owns_store
+            else None
+        )
+        self.store = (
+            path
+            if isinstance(path, Store)
+            else open_store(path, backend=backend, prefetch=prefetch,
+                            prefetch_workers=prefetch_workers)
+        )
         attrs = self.store.read_attrs(layout.INFO)
         self.info = layout.IndexInfo.from_attrs(attrs)
         self._tombstones: set = layout.read_tombstones(attrs)
@@ -417,6 +479,10 @@ class ECPIndex:
         # against snapshot(): a snapshot is only ever taken at a published
         # generation, never mid-mutation
         self._mut_lock = threading.RLock()
+        # prefetched-but-unconsumed payloads: (level, node) -> nbytes; a
+        # later cache hit counts a prefetch_hit, a miss (evicted first) or
+        # invalidation counts the bytes as wasted
+        self._pf_pending: dict[tuple[int, int], int] = {}
         # Loading the index = read info + the root node only (paper §4.2).
         self.root_emb, self.root_ids = self.store.get_node(0, 0)
         self.cache = cache if cache is not None else NodeCache(
@@ -424,6 +490,10 @@ class ECPIndex:
         )
         # namespace tag keeps keys distinct inside a shared cache
         self._ns = namespace if namespace is not None else str(self.store.path)
+        self._prefetch_workers = prefetch_workers
+        self._pool: ThreadPoolExecutor | None = None  # reusable prefetch pool
+        # store-level async prefetch hook (AsyncPrefetchStore); None otherwise
+        self._store_prefetch = getattr(self.store, "prefetch", None)
         self.load_node_count = 0
         self.engine = engine
         self._scorer = scorer
@@ -462,6 +532,25 @@ class ECPIndex:
             "kernel_ms": 0.0, "rerank_ms": 0.0,
         }
         self._qt_lock = threading.Lock()  # concurrent searches add to quant_times
+        # hot-level pinning: park every internal level in the cache's
+        # pinned (LRU-exempt) region at open so leaf churn never evicts
+        # the navigation structure — warm internal_reads drop to zero
+        self._pin_internal = bool(pin_internal)
+        if self._pin_internal and self.info.levels > 1:
+            self._preload_internal()
+
+    @property
+    def state_store(self):
+        """The writable hierarchy store for query-state persistence (§6.2).
+
+        Only the fstore backend can hold per-query groups; the blob form
+        is a fixed-slot node file."""
+        if getattr(self.store, "fstore", None) is None:
+            raise NotImplementedError(
+                "query-state persistence (save/load_query) requires the "
+                f"fstore backend; this index uses {self.store.backend!r}"
+            )
+        return self.store
 
     # ------------------------------------------------------------ node IO
     def _key(self, level: int, node: int) -> tuple:
@@ -472,18 +561,71 @@ class ECPIndex:
         without ever seeing each other's bytes."""
         return (self._ns, self._epoch, self._node_ver.get((level, node), 0), level, node)
 
+    def _pf_consumed(self, level: int, node: int, *, hit: bool) -> None:
+        """Prefetch-accuracy attribution: a cache hit on a pending
+        prefetched node is a prefetch_hit; a miss means the payload was
+        evicted before use — its bytes were read for nothing."""
+        nb = self._pf_pending.pop((level, node), None)
+        if nb is None:
+            return
+        if hit:
+            self.store.io.count_prefetch(hits=1)
+        else:
+            self.store.io.count_prefetch(wasted_bytes=nb)
+
+    def flush_prefetch_stats(self) -> None:
+        """Charge every still-unconsumed prefetched payload as wasted (the
+        end-of-pass accounting benchmarks use, after ``store.drain()``)."""
+        while self._pf_pending:
+            try:
+                _, nb = self._pf_pending.popitem()
+            except KeyError:  # racing consumer emptied it
+                break
+            self.store.io.count_prefetch(wasted_bytes=nb)
+
     def _store_miss(self, level: int, node: int, v) -> None:
-        """Account + cache one node read the store just served (internal
-        levels 1..L-1 bump ``io.internal_reads``)."""
+        """Account + cache one node read the store just served: internal
+        levels (1..L-1) bump ``io.internal_reads`` — the counter the
+        hot-level pinning tests watch — and go to the pinned cache region
+        when ``pin_internal`` is on."""
         self.load_node_count += 1
+        key = self._key(level, node)
         if 0 < level < self.info.levels:
             self.store.io.count_internal(1)
-        self.cache.put(self._key(level, node), v)
+            if self._pin_internal:
+                self.cache.pin(key, v)
+                return
+        self.cache.put(key, v)
+
+    def _preload_internal(self) -> None:
+        """Load and pin every internal-level node (pin_internal=True):
+        after this, a warm search's ``internal_reads`` delta is zero."""
+        for keys in self._level_batches(self.info.levels - 1):
+            batch = [kk for kk in keys if not self.cache.contains(self._key(*kk))]
+            if not batch:
+                continue
+            for (lv, nd), v in zip(batch, self.store.get_nodes(batch)):
+                self._store_miss(lv, nd, v)
+
+    def _level_batches(self, up_to_level: int, chunk: int = 64) -> list[list[tuple[int, int]]]:
+        """Every node key at levels 1..up_to_level, in batches of ``chunk``."""
+        info = self.info
+        keys = [
+            (lv, j)
+            for lv in range(1, min(up_to_level, info.levels) + 1)
+            for j in range(info.nodes_per_level[lv - 1])
+        ]
+        return [keys[i : i + chunk] for i in range(0, len(keys), chunk)]
 
     def get_node(self, level: int, node: int) -> tuple[np.ndarray, np.ndarray]:
-        v = self.cache.get(self._key(level, node))
+        key = self._key(level, node)
+        v = self.cache.get(key)
         if v is not None:
+            if self._pf_pending:
+                self._pf_consumed(level, node, hit=True)
             return v
+        if self._pf_pending:
+            self._pf_consumed(level, node, hit=False)
         v = self.store.get_node(level, node)
         self._store_miss(level, node, v)
         return v
@@ -496,8 +638,12 @@ class ECPIndex:
         for i, (lv, nd) in enumerate(keys):
             v = self.cache.get(self._key(lv, nd))
             if v is not None:
+                if self._pf_pending:
+                    self._pf_consumed(lv, nd, hit=True)
                 out[i] = v
             else:
+                if self._pf_pending:
+                    self._pf_consumed(lv, nd, hit=False)
                 missing.append((lv, nd))
                 missing_i.append(i)
         if missing:
@@ -505,6 +651,13 @@ class ECPIndex:
                 self._store_miss(lv, nd, v)
                 out[i] = v
         return out
+
+    def _on_prefetched(self, key, value) -> None:
+        """Prefetch sink: completed background reads land straight in the
+        (byte-budgeted) node cache instead of pinning store-side buffers."""
+        lv, nd = key[0], key[1]
+        self.cache.put(self._key(lv, nd), value)
+        self._pf_pending[(lv, nd)] = int(value[0].nbytes + value[1].nbytes)
 
     def _get_quant_nodes(self, keys: list) -> list:
         """Cache-aware batched read of the leaves' quantized companion
@@ -553,8 +706,26 @@ class ECPIndex:
         self.cache.put(ikey, ids)
         return ids
 
+    def prefetch(self, up_to_level: int) -> None:
+        """Background-load all nodes at levels 1..up_to_level (paper §4.2)
+        on the index's reusable prefetch pool."""
+        list(self._prefetch_pool().map(self.get_nodes, self._level_batches(up_to_level)))
+
+    def _prefetch_pool(self) -> ThreadPoolExecutor:
+        """One executor per index, created lazily and reused across
+        ``prefetch`` calls (no per-call pool spin-up/teardown)."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self._prefetch_workers, thread_name_prefix="ecp-prefetch"
+            )
+        return self._pool
+
     def close(self) -> None:
-        """Close the underlying store if this index opened it.  Idempotent."""
+        """Shut down the prefetch pool and (if this index opened it) the
+        underlying store.  Idempotent."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
         if self._owns_store and self.store is not None:
             self.store.close()
 
@@ -614,12 +785,6 @@ class ECPIndex:
         strategy off this."""
         return getattr(self.store, "pin", None) is not None
 
-    def prefetch(self, up_to_level: int) -> None:
-        raise _todo("prefetch", "2")
-
-    def load_query(self, name: str, *, group: str = "query_states") -> ECPQuery:
-        raise _todo("Query.save / load_query", "3")
-
     @property
     def tombstones(self) -> set:
         """Tombstoned item ids (a copy; mutate via ``delete``)."""
@@ -651,10 +816,12 @@ class ECPIndex:
             self.cache.invalidate_namespace(self._ns)
             if self._norms is not None:
                 self._norms.clear()
+            self.flush_prefetch_stats()
             self._node_ver.clear()
             self._epoch += 1
         else:
             for key in written:
+                self._pf_consumed(key[0], key[1], hit=False)
                 self.cache.invalidate(self._key(*key))
                 self._node_ver[key] = self._node_ver.get(key, 0) + 1
         if tombstones is not None:
@@ -675,6 +842,7 @@ class ECPIndex:
             )
         self.store.close()
         self.store = open_store(**self._reopen)
+        self._store_prefetch = getattr(self.store, "prefetch", None)
 
     def refresh(self) -> None:
         """Resynchronize with the files after they changed OUTSIDE this
@@ -750,6 +918,18 @@ class ECPIndex:
         merged.sort()
         qs.best_d = merged[:BEST_D_CAP]
 
+    def _prefetch_hint(self, child_level: int, ids: np.ndarray, d: np.ndarray) -> list:
+        """The nearest not-yet-resident children of one expansion —
+        ``argpartition`` (no full sort) since prefetch order is moot."""
+        f = min(self.prefetch_fanout, len(d))
+        if f <= 0:
+            return []
+        sel = np.argpartition(d, f - 1)[:f] if f < len(d) else range(len(d))
+        return [
+            (child_level, int(ids[j]))
+            for j in sel
+            if not self.cache.contains(self._key(child_level, int(ids[j])))
+        ]
 
     # ------------------------------------------------------- Algorithm 1
     def search(
@@ -782,6 +962,18 @@ class ECPIndex:
         single = q.ndim == 1
         Q = q[None, :] if single else q
         excl = set(exclude) if exclude else set()
+        if self.engine == "legacy":
+            states = [
+                legacy.LegacyQueryState(
+                    q=row, b=b, mx_inc=mx_inc, exclude=set(excl), probe_m=pm
+                )
+                for row in Q
+            ]
+            rows = []
+            for qs in states:
+                legacy.incremental_search(self, qs, k)
+                rows.append(legacy.next_items(self, qs, k))
+            return self._result(rows, states, k, single, ECPQuery(self, states, single=single))
         states = [
             QueryState(q=row, b=b, mx_inc=mx_inc, exclude=set(excl), probe_m=pm)
             for row in Q
@@ -816,6 +1008,8 @@ class ECPIndex:
 
     # ------------------------------------------------------- Algorithm 2
     def _next_rows(self, states: list, k: int, batch_stats: SearchStats | None = None) -> list:
+        if self.engine == "legacy":
+            return [legacy.next_items(self, qs, k) for qs in states]
         self._quant_seq += 1
         if len(states) > 1:
             need = [qs for qs in states if self._ilen(qs) < k and qs.T]
@@ -885,6 +1079,12 @@ class ECPIndex:
                     leaf_cnt += 1
                 else:
                     qs.T.push_batch(d, ids, 1 if (level + 1) == info.levels else 0, level + 1)
+                    if self._store_prefetch is not None:
+                        # async: start loading the nearest children while
+                        # the traversal keeps scoring (frontier prefetch)
+                        want = self._prefetch_hint(level + 1, ids, d)
+                        if want:
+                            self._store_prefetch(want, on_node=self._on_prefetched)
                 if is_leaf and leaf_cnt >= qs.b_cur:
                     if len(qs.I) >= k:
                         stop = True
@@ -995,6 +1195,7 @@ class ECPIndex:
                         p[0].stats.node_loads += 1
                         if j:
                             p[0].stats.dedup_hits += 1
+            hints: dict[tuple, None] = {}
             done: set[int] = set()
             if leaf_keys:
                 self._quant_scan_round(
@@ -1041,6 +1242,11 @@ class ECPIndex:
                                 done.add(id(qs))
                     else:
                         qs.T.push_batch(d, ids, 1 if (level + 1) == info.levels else 0, level + 1)
+                        if self._store_prefetch is not None:
+                            for hk in self._prefetch_hint(level + 1, ids, d):
+                                hints[hk] = None
+            if hints:
+                self._store_prefetch(list(hints), on_node=self._on_prefetched)
             active = [qs for qs in active if id(qs) not in done and qs.T]
         t0 = time.perf_counter()
         self._quant_finalize(pending)
@@ -1358,6 +1564,60 @@ class ECPIndex:
                 return rows, True
         return rows, False
 
+    # -------------------------------------------------------- persistence
+    def _export_state(self, qs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(item_dists, item_ids, frontier_rows) in the §6.2 schema —
+        identical on-disk layout for both engines."""
+        if isinstance(qs, legacy.LegacyQueryState):
+            return legacy.export_state(qs)
+        d, i = qs.I.export_items()
+        return d, i, qs.T.export_rows()
+
+    def load_query(self, name: str, *, group: str = "query_states") -> ECPQuery:
+        """Rehydrate a saved ``ECPQuery`` (token from ``ECPQuery.save``)."""
+        store = self.state_store
+        g = f"{group}/{name}"
+        head = store.read_attrs(g)
+        n_rows = int(head.get("n_rows", 1))
+        single = bool(head.get("single", n_rows == 1))
+        states = []
+        for r in range(n_rows):
+            rg = f"{g}/row_{r:06d}"
+            a = store.read_attrs(rg)
+            q = store.read_array(f"{rg}/query")
+            d = store.read_array(f"{rg}/item_dists")
+            i = store.read_array(f"{rg}/item_ids")
+            t = store.read_array(f"{rg}/frontier")
+            seen = (
+                store.read_array(f"{rg}/seen_ids")
+                if store.exists(f"{rg}/seen_ids")
+                else None
+            )
+            if self.engine == "legacy":
+                qs = legacy.load_state(q, a, d, i, t, seen_ids=seen)
+            else:
+                qs = QueryState(
+                    q=q,
+                    b=int(a["b"]),
+                    mx_inc=int(a["mx_inc"]),
+                    exclude=set(a.get("exclude", [])),
+                    probe_m=int(a.get("probe_m", 1)),
+                )
+                qs.increments = int(a["increments"])
+                qs.emitted = int(a["emitted"])
+                qs.started = bool(a["started"])
+                qs.I = CandidateBuffer.from_items(d, i)
+                if self.info.spill_s > 0:
+                    qs.I.dedup = True
+                    if seen is not None:
+                        qs.I.seed_seen(seen)
+                qs.T = Frontier.from_rows(t)
+            states.append(qs)
+        batch_stats = (
+            SearchStats() if (self.engine == "flat" and len(states) > 1) else None
+        )
+        return ECPQuery(self, states, single=single, batch_stats=batch_stats)
+
 
 class ECPSnapshot(ECPIndex):
     """A generation-pinned, read-only ``ECPIndex`` view — the serving
@@ -1401,9 +1661,13 @@ class ECPSnapshot(ECPIndex):
         self._epoch = parent._epoch
         self._node_ver = dict(parent._node_ver)
         self._mut_lock = threading.RLock()  # uncontended; type uniformity
+        self._pf_pending: dict = {}
         self.root_emb, self.root_ids = parent.root_emb, parent.root_ids
         self.cache = parent.cache
         self._ns = parent._ns
+        self._prefetch_workers = 0
+        self._pool = None
+        self._store_prefetch = None  # snapshots never prefetch
         self.load_node_count = 0
         self.engine = parent.engine
         self._scorer = parent._scorer
@@ -1414,6 +1678,9 @@ class ECPSnapshot(ECPIndex):
         self._qformat = parent._qformat
         self._quant_seq = parent._quant_seq
         self._probe_m = parent._probe_m
+        # never pin from a snapshot: its versioned keys outlive the pin's
+        # usefulness once the snapshot closes (parent's pins stay shared)
+        self._pin_internal = False
         self._stages = parent._stages
         self.quant_times = parent.quant_times
         self._qt_lock = parent._qt_lock

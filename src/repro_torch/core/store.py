@@ -70,8 +70,9 @@ node updates copy-on-write into fresh slots and the superseded slots are
 retired (recycled once every older pin releases), so snapshot reads are
 bit-identical to the pinned version forever and never take the store lock.
 
-Not ported yet (ROADMAP Queue 1 #2): ``AsyncPrefetchStore`` (the
-``"<name>+prefetch"`` backends).
+``AsyncPrefetchStore`` wraps either backend with a thread pool so the
+traversal can load a frontier's children while it scores (the
+``"<name>+prefetch"`` backends), throttled by its own measured accuracy.
 """
 from __future__ import annotations
 
@@ -80,6 +81,7 @@ import os
 import threading
 import weakref
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Protocol, runtime_checkable
 
@@ -95,6 +97,7 @@ __all__ = [
     "FStoreBackend",
     "BlobStore",
     "BlobSnapshot",
+    "AsyncPrefetchStore",
     "NodeNormCache",
     "open_store",
     "convert",
@@ -1382,12 +1385,260 @@ class NodeNormCache:
             self._d.clear()
 
 
+# ------------------------------------------------------------ async prefetch
+class AsyncPrefetchStore:
+    """Wrap any ``Store`` with a thread pool for asynchronous node reads.
+
+    ``prefetch(keys)`` schedules background ``get_node`` calls; a later
+    ``get_node``/``get_nodes`` for the same key joins the in-flight future
+    instead of touching the disk again.  The traversal uses this to load
+    the frontier's children while distance math runs.
+
+    Speculation is throttled by its own measured accuracy: once the
+    ``IOStats`` hit rate (``prefetch_hits / prefetch_issued``, which
+    includes the cache-level was-it-ever-used attribution) drops below
+    ``hit_rate_threshold`` after a ``warmup`` of issues, new batches are
+    suppressed — except an occasional probe (1 in ``probe_every``) so the
+    rate can recover when the access pattern changes.  Independently,
+    in-flight speculative bytes are capped at ``max_inflight_bytes`` so a
+    burst of never-consumed reads cannot queue unbounded wasted I/O.
+    """
+
+    def __init__(
+        self,
+        inner,
+        *,
+        workers: int = 4,
+        max_inflight: int = 128,
+        hit_rate_threshold: float = 0.75,
+        warmup: int = 16,
+        probe_every: int = 32,
+        max_inflight_bytes: int = 4 << 20,
+    ):
+        self.inner = inner
+        self.backend = f"{inner.backend}+prefetch"
+        self._ex = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="store-prefetch")
+        self._futures: dict = {}
+        self._lock = threading.Lock()
+        self.prefetch_issued = 0
+        self.prefetch_hits = 0
+        self._max_inflight = max_inflight
+        self.hit_rate_threshold = float(hit_rate_threshold)
+        self.warmup = int(warmup)
+        self.probe_every = int(probe_every)
+        self.max_inflight_bytes = int(max_inflight_bytes)
+        self.prefetch_suppressed = 0  # keys skipped by the accuracy gate
+        self._suppressed_batches = 0
+        self._inflight_bytes = 0
+        self._charged: dict = {}  # key -> bytes charged against the in-flight cap
+        # per-node size estimate for the byte cap; refined from completed reads
+        self._node_bytes_est = int(getattr(inner, "block_bytes", 0) or 16384)
+
+    @property
+    def io(self) -> IOStats:
+        return self.inner.io
+
+    def __getattr__(self, name):
+        if name == "inner":  # pre-__init__ lookups must not recurse
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    @property
+    def hit_rate(self) -> float:
+        """Measured prefetch accuracy so far (1.0 before anything issued)."""
+        io = self.inner.io
+        return io.prefetch_hits / io.prefetch_issued if io.prefetch_issued else 1.0
+
+    def _gate(self) -> str:
+        """Accuracy gate, lock held: ``open`` | ``probe`` | ``closed``.
+
+        ``probe`` (1 in ``probe_every`` suppressed batches) admits only the
+        nearest key, keeping a trickle of measurements alive so the rate
+        can recover when the access pattern changes."""
+        io = self.inner.io
+        if io.prefetch_issued < self.warmup:
+            return "open"
+        if io.prefetch_hits >= self.hit_rate_threshold * io.prefetch_issued:
+            return "open"
+        self._suppressed_batches += 1
+        if self._suppressed_batches >= self.probe_every:
+            self._suppressed_batches = 0
+            return "probe"
+        return "closed"
+
+    def _drop(self, key) -> None:
+        """Forget a future's in-flight byte charge, lock held."""
+        self._inflight_bytes -= self._charged.pop(key, 0)
+
+    def prefetch(self, keys: list, on_node=None) -> None:
+        """Schedule background reads for ``keys``.
+
+        ``on_node(key, (emb, ids))`` — optional sink called from the worker
+        thread when a read completes; the future is dropped immediately so
+        prefetched data lives in the caller's (byte-budgeted) cache, not
+        pinned here.  Without a sink, results wait in the in-flight table
+        (bounded by ``max_inflight``) until a demand read consumes them.
+        """
+        submitted = []
+        with self._lock:
+            if self._ex is None:
+                return
+            gate = self._gate()
+            if gate == "closed":
+                self.prefetch_suppressed += len(keys)
+                return
+            if gate == "probe":
+                self.prefetch_suppressed += len(keys) - 1
+                keys = keys[:1]
+            for n_taken, key in enumerate(keys):
+                if key in self._futures:
+                    continue
+                if self._inflight_bytes + self._node_bytes_est > self.max_inflight_bytes:
+                    self.prefetch_suppressed += len(keys) - n_taken
+                    break
+                if len(self._futures) >= self._max_inflight:
+                    # drop consumed-done entries first; if still full, skip
+                    done = [k for k, f in self._futures.items() if f.done()]
+                    for k in done[: len(self._futures) - self._max_inflight + 1]:
+                        fut = self._futures.pop(k)
+                        self._drop(k)
+                        if not fut.cancelled() and fut.exception() is None:
+                            emb, ids = fut.result()  # read, never consumed
+                            self.inner.io.count_prefetch(
+                                wasted_bytes=emb.nbytes + ids.nbytes
+                            )
+                    if len(self._futures) >= self._max_inflight:
+                        break
+                f = self._ex.submit(self.inner.get_node, *key)
+                self._futures[key] = f
+                self._charged[key] = self._node_bytes_est
+                self._inflight_bytes += self._node_bytes_est
+                self.prefetch_issued += 1
+                self.inner.io.count_prefetch(issued=1)
+                submitted.append((key, f))
+        if on_node is None:
+            return
+        for key, f in submitted:
+            # registered OUTSIDE the lock: a completed future runs the
+            # callback inline, and the callback takes the lock itself
+            def _done(fut, key=key):
+                # whoever pops the key owns delivery: if a demand read (or
+                # eviction/close) already popped it, the payload was consumed
+                # (and counted) there — delivering to the sink as well would
+                # double-count the hit and later flush it as wasted
+                with self._lock:
+                    owned = self._futures.pop(key, None) is not None
+                    self._drop(key)
+                if owned and not fut.cancelled() and fut.exception() is None:
+                    emb, ids = fut.result()
+                    # refine the per-node size estimate from real payloads
+                    self._node_bytes_est = max(1, (emb.nbytes + ids.nbytes))
+                    on_node(key, (emb, ids))
+
+            f.add_done_callback(_done)
+
+    def drain(self) -> None:
+        """Block until every in-flight prefetch has completed (and counted
+        its I/O).  Benchmarks call this before snapshotting ``io`` so async
+        reads issued during a pass are attributed to that pass."""
+        with self._lock:
+            pending = list(self._futures.values())
+        for f in pending:
+            try:
+                f.result()
+            except Exception:
+                pass  # a failed prefetch surfaces on the demand-read path
+
+    def _pop(self, key):
+        with self._lock:
+            f = self._futures.pop(key, None)
+            if f is not None:
+                self._drop(key)
+            return f
+
+    def get_node(self, level: int, node: int) -> tuple[np.ndarray, np.ndarray]:
+        # racy-but-safe emptiness check: when the throttle has the gate
+        # closed there is usually nothing in flight, and demand reads
+        # should not pay the lock on every node
+        if self._futures:
+            f = self._pop((level, node))
+            if f is not None:
+                self.prefetch_hits += 1
+                self.inner.io.count_prefetch(hits=1)
+                return f.result()
+        return self.inner.get_node(level, node)
+
+    def get_nodes(self, keys: list) -> list:
+        if not self._futures:  # same fast path as get_node
+            return self.inner.get_nodes(keys)
+        out: list = [None] * len(keys)
+        missing, missing_i = [], []
+        for i, key in enumerate(keys):
+            f = self._pop(tuple(key))
+            if f is not None:
+                self.prefetch_hits += 1
+                self.inner.io.count_prefetch(hits=1)
+                out[i] = f.result()
+            else:
+                missing.append(key)
+                missing_i.append(i)
+        if missing:
+            for i, v in zip(missing_i, self.inner.get_nodes(missing)):
+                out[i] = v
+        return out
+
+    def read_attrs(self, path: str) -> dict:
+        return self.inner.read_attrs(path)
+
+    def write_attrs(self, path: str, attrs: dict) -> None:
+        self.inner.write_attrs(path, attrs)
+
+    def _invalidate(self, level: int, node: int) -> None:
+        """Drop an in-flight prefetch of a node that is being rewritten —
+        otherwise its stale payload could satisfy a later demand read."""
+        f = self._pop((level, node))
+        if f is not None:
+            if not f.cancel() and f.done() and f.exception() is None:
+                emb, ids = f.result()  # completed but now stale: read for nothing
+                self.inner.io.count_prefetch(wasted_bytes=emb.nbytes + ids.nbytes)
+
+    def write_node(self, level: int, node: int, emb, ids, **kw) -> None:
+        self._invalidate(level, node)
+        self.inner.write_node(level, node, emb, ids, **kw)
+
+    def append_rows(self, level: int, node: int, emb, ids, **kw) -> None:
+        self._invalidate(level, node)
+        self.inner.append_rows(level, node, emb, ids, **kw)
+
+    def delete_rows(self, level: int, node: int, drop_ids) -> int:
+        self._invalidate(level, node)
+        return self.inner.delete_rows(level, node, drop_ids)
+
+    def free_slot(self, level: int, node: int) -> None:
+        self._invalidate(level, node)
+        self.inner.free_slot(level, node)
+
+    def close(self) -> None:
+        with self._lock:
+            ex, self._ex = self._ex, None
+            self._futures.clear()
+            self._charged.clear()
+            self._inflight_bytes = 0
+        if ex is not None:
+            ex.shutdown(wait=False)
+        self.inner.close()
+
+
+
+
 # ------------------------------------------------------------------- factory
 def open_store(
     path: "str | os.PathLike | Store",
     backend: str = "auto",
     *,
     create: bool = False,
+    prefetch: bool = False,
+    prefetch_workers: int = 4,
 ) -> Store:
     """Open an index's node storage.
 
@@ -1395,24 +1646,29 @@ def open_store(
     backend="blob"    -> the page-aligned single-file form (``convert()``).
     backend="auto"    -> blob when ``path`` is a blob file or a directory
                          holding ``index.blob``; otherwise fstore.
-    A ``"<name>+prefetch"`` backend (async prefetch) is not ported yet.
+    prefetch=True     -> wrap the backend in ``AsyncPrefetchStore``; the
+                         spelling ``backend="<name>+prefetch"`` is
+                         equivalent.
     """
     if backend.endswith("+prefetch"):
-        raise NotImplementedError(
-            "async prefetch stores are not ported yet (ROADMAP Queue 1 #2: "
-            "prefetch); open the index without '+prefetch'"
-        )
+        backend = backend[: -len("+prefetch")]
+        prefetch = True
     if isinstance(path, Store):
-        return path
-    if isinstance(path, FStore):
-        return FStoreBackend(path)
-    p = Path(path)
-    if backend == "auto":
-        backend = "blob" if p.is_file() or (p / BLOB_FILENAME).is_file() else "fstore"
-    if backend == "fstore":
-        return FStoreBackend(p, create=create)
-    if backend == "blob":
-        if create:
-            raise ValueError("blob stores are created with convert(), not create=True")
-        return BlobStore(p)
-    raise ValueError(f"unknown store backend: {backend!r} (fstore|blob|auto)")
+        store = path
+    elif isinstance(path, FStore):
+        store = FStoreBackend(path)
+    else:
+        p = Path(path)
+        if backend == "auto":
+            backend = "blob" if p.is_file() or (p / BLOB_FILENAME).is_file() else "fstore"
+        if backend == "fstore":
+            store = FStoreBackend(p, create=create)
+        elif backend == "blob":
+            if create:
+                raise ValueError("blob stores are created with convert(), not create=True")
+            store = BlobStore(p)
+        else:
+            raise ValueError(f"unknown store backend: {backend!r} (fstore|blob|auto)")
+    if prefetch and not isinstance(store, AsyncPrefetchStore):
+        store = AsyncPrefetchStore(store, workers=prefetch_workers)
+    return store

@@ -32,8 +32,9 @@ from a snapshot keep their pinned generation and never turn stale.)
   PYTHONPATH=src python -m repro_torch.launch.serve --demo                # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --demo --device cpu   # on the CPU
 
-The demo's ``--backend`` is ``fstore`` or ``blob``; ``blob+prefetch`` (an
-async prefetch store) is not ported yet and raises.
+The demo's ``--backend`` picks the interactive server's node storage:
+``fstore``, ``blob``, or either behind the async prefetch store
+(``fstore+prefetch``, ``blob+prefetch``).
 """
 from __future__ import annotations
 
@@ -386,7 +387,7 @@ class _NullCtx:
 _NULL_CTX = _NullCtx()
 
 
-BACKENDS = ("fstore", "blob")
+BACKENDS = ("fstore", "fstore+prefetch", "blob", "blob+prefetch")
 
 
 def demo(backend: str = "fstore", device="cuda", *, n_items: int = 50_000) -> dict:
@@ -395,14 +396,13 @@ def demo(backend: str = "fstore", device="cuda", *, n_items: int = 50_000) -> di
     write path, a 4-worker scheduler over snapshots of the blob while a
     writer inserts, and a batched packed-mode server.  The device work
     (the build's assignment, the packed search) runs on ``device``.
-    Returns each server's stats summary."""
+    Returns each server's stats summary, the interactive store's io, and
+    the ids the interactive server's 32 searches and 8 ``more`` calls
+    returned."""
     import tempfile
 
     if backend not in BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (ROADMAP Queue 1 #2: "
-            "AsyncPrefetchStore and prefetch=True); use fstore or blob"
-        )
+        raise ValueError(f"unknown backend {backend!r} ({'|'.join(BACKENDS)})")
     out: dict = {}
     data, _ = clustered_vectors(0, n=n_items, dim=128, n_clusters=256)
     with tempfile.TemporaryDirectory() as td:
@@ -415,15 +415,18 @@ def demo(backend: str = "fstore", device="cuda", *, n_items: int = 50_000) -> di
         qs = data[rng.integers(0, len(data), 32)] + 0.01 * rng.normal(size=(32, 128)).astype(np.float32)
 
         # interactive: the paper's mode — one request at a time, bounded RAM;
-        # the node storage is the --backend axis (fstore | blob)
+        # the node storage is the --backend axis (fstore | blob, either
+        # optionally behind the async prefetch store)
         idx = open_index(
-            path if backend == "fstore" else blob,
+            path if backend.startswith("fstore") else blob,
             mode="file", backend=backend, cache_max_nodes=64, device=device,
         )
         with Server(idx) as srv:  # shutdown() closes sessions + the index
-            sids = [srv.search(q, k=20, b=8)[1] for q in qs]
-            for sid in sids[:8]:
-                srv.more(sid, k=20)
+            found = [srv.search(q, k=20, b=8) for q in qs]
+            sids = [sid for _, sid in found]
+            more = [srv.more(sid, k=20) for sid in sids[:8]]
+            out["interactive_ids"] = np.stack([rs.row_ids(0) for rs, _ in found])
+            out["more_ids"] = np.stack([rs.row_ids(0) for rs in more])
             for sid in sids:
                 srv.close(sid)
 
@@ -434,10 +437,12 @@ def demo(backend: str = "fstore", device="cuda", *, n_items: int = 50_000) -> di
             hit = srv.search(new[0], k=5, b=8)[0]
             if len(data) not in hit.row_ids(0):
                 raise AssertionError("inserted item must be findable")
+            # compaction of a blob reopens its store: read its io first
+            out["store_io"] = idx.store.io.as_dict()
             print(f"compacted: {srv.compact()}")
             out["interactive"] = srv.stats.summary()
             print(f"interactive[{backend}]:", out["interactive"])
-            print("  store io:", idx.store.io.as_dict())
+            print("  store io:", out["store_io"])
 
         # concurrent: worker pool + deadline-aware effort on the blob store
         # (snapshot-isolated reads: searches never block on the writer)
@@ -467,9 +472,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--demo", action="store_true")
     ap.add_argument(
-        "--backend", choices=("fstore", "blob", "blob+prefetch"), default="fstore",
-        help="node storage for the interactive (file-mode) server; blob+prefetch "
-        "is not ported yet and raises",
+        "--backend", choices=BACKENDS, default="fstore",
+        help="node storage for the interactive (file-mode) server",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--n-items", type=int, default=50_000)

@@ -42,7 +42,8 @@ def test_importing_the_port_loads_neither():
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.distance_topk, "
         "repro_torch.kernels._build, repro_torch.configs.ecpfs_paper, repro_torch.data.synthetic, "
         "repro_torch.models, repro_torch.models.transformer, repro_torch.kernels.flash_attention, "
-        "repro_torch.configs.lm_archs, repro_torch.configs.shapes\n"
+        "repro_torch.configs.lm_archs, repro_torch.configs.shapes, repro_torch.core.legacy, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )

@@ -140,6 +140,58 @@ def test_ties_keep_index_order_on_repeated_rows(tmp_path):
     _close(ref.query.next(24), ours.query.next(24))
 
 
+def test_ties_near_zero_l2_keep_ids_and_bound_the_cancellation(tmp_path):
+    """The tie test's twin with queries 0.01 from their rows.  Both
+    packages compute l2 as |q|^2 + |c|^2 - 2 c.q in float32, so a distance
+    near zero is a difference of terms of size |q|^2 and carries their
+    rounding: each package's sum over D terms is off by at most
+    D * eps * (|q| + |c|)^2, about 4 * D * eps * |q|^2 here (|c| ~ |q|),
+    and the two by twice that.  The ids stay exact; a near-zero distance
+    may differ by up to 8 * D * eps * |q|^2, every other one by RTOL."""
+    rng = np.random.default_rng(9)
+    base = rng.standard_normal((150, D)).astype(np.float32)
+    data = np.repeat(base, 4, axis=0)
+    path = _build(tmp_path, "rep", data, levels=2, metric="l2", cluster_cap=40)
+    Q = base[:5] + 0.01 * rng.standard_normal((5, D)).astype(np.float32)
+    ref = RefBatched(ref_load_packed(ref_open_store(path))).search(Q, 24, b=4)
+    ours = BatchedSearcher(load_packed(path), device="cpu").search(Q, 24, b=4)
+    assert (np.diff(ours.dists.reshape(5, 6, 4), axis=-1) == 0).all()
+    assert np.array_equal(np.asarray(ref.ids, np.int64), ours.ids)
+    assert (ours.ids[:, :4] // 4 == np.arange(5)[:, None]).all()  # each query's own row first
+    eps = np.finfo(np.float32).eps
+    cancel = 8 * D * eps * (Q.astype(np.float64) ** 2).sum(1, keepdims=True)
+    rd = np.asarray(ref.dists, np.float64)
+    assert (np.abs(rd[:, :4]) < 0.01).all()  # the near-zero distances under test
+    assert (np.abs(ours.dists - rd) <= np.maximum(RTOL * np.abs(rd), cancel)).all()
+    nxt_ref, nxt = ref.query.next(24), ours.query.next(24)
+    assert np.array_equal(np.asarray(nxt_ref.ids, np.int64), nxt.ids)
+
+
+def test_open_index_auto_on_a_gpu_refuses_a_tombstoned_index_as_the_reference(built, monkeypatch, tmp_path):
+    """On a GPU, "auto" opens packed mode, which refuses tombstones: with
+    the device reported as CUDA (and, for the reference, its backend as an
+    accelerator) both packages raise the same ``ValueError``; file mode
+    searches the same index."""
+    import shutil
+
+    import jax
+
+    from repro.core import open_index as ref_open
+
+    _, _, path, Q = built
+    p = shutil.copytree(path, tmp_path / "tomb")
+    open_index(p, mode="file", device="cpu").delete([0])
+    monkeypatch.setattr(port_api, "resolve_device", lambda d="cuda": torch.device("cuda"))
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    with pytest.raises(ValueError, match="tombstoned") as ours:
+        open_index(p)
+    with pytest.raises(ValueError, match="tombstoned") as theirs:
+        ref_open(p, mode="auto")
+    assert str(ours.value) == str(theirs.value)
+    rs = open_index(p, mode="file", device="cpu").search(Q, K, b=4)
+    assert 0 not in rs.ids
+
+
 def test_three_levels_match_the_reference(tmp_path):
     rng = np.random.default_rng(2)
     data = rng.standard_normal((2000, D)).astype(np.float32)

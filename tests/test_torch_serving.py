@@ -661,5 +661,15 @@ def test_serve_demo_runs_to_its_end_on_the_cpu(capsys):
     assert out["scheduler"]["completed"] == 32
     assert out["batched"]["queries"] == 32 and out["batched"]["continuations"] == 32
     assert "batched:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #2"):
-        port_serve.demo("blob+prefetch", device="cpu", n_items=3000)
+    # the interactive server behind the async prefetch store: the same
+    # requests, served the same way and answered with the same ids, with
+    # background reads issued
+    pre = port_serve.demo("blob+prefetch", device="cpu", n_items=3000)
+    for key in ("queries", "continuations", "inserts", "deletes", "compactions"):
+        assert pre["interactive"][key] == out["interactive"][key], key
+    assert out["interactive_ids"].shape == (32, 20) and out["more_ids"].shape == (8, 20)
+    np.testing.assert_array_equal(pre["interactive_ids"], out["interactive_ids"])
+    np.testing.assert_array_equal(pre["more_ids"], out["more_ids"])
+    assert pre["store_io"]["prefetch_issued"] > 0 and out["store_io"]["prefetch_issued"] == 0
+    with pytest.raises(ValueError, match="unknown backend"):
+        port_serve.demo("nope", device="cpu", n_items=3000)
