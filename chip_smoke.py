@@ -59,7 +59,29 @@ Phases, none of whose failures is caught:
    leaves: evictions above 0, results those of the phases that opened each
    index alone (the kernel scorer's within the kernel tolerance); both
    kernels' launches counted from 0.
-3b. serve: the serving path (``launch/serve.py``'s ``Server``) on the same
+3b. federation: the 200k collection as 4 shards (contiguous 50k slices,
+   ``build_federation``), each built on the card, converted
+   ``quant="int8"`` and joined by a manifest; ``open_index(root,
+   quantized=True)`` with no mode is a ``FederatedIndex`` on the card, not
+   packed mode.  32 queries, search and ``next(100)``: identical to the
+   same shards opened fp on the host engine (``next`` up to the order of
+   equal distances, ROADMAP Queue 3, counted and printed), each row's
+   allocation summing to b=64 with every probed shard at ``b_min`` or above,
+   each row's aggregate counters the sum of its shards', the grouped kernel
+   launched in every shard (counted per shard).  A one-shard manifest over
+   the main phase's own blob answers as the main phase.  Prints recall@100
+   beside the single index's and the bytes written; the shard files go.
+3c. baselines: ``BruteForce`` over the stored collection (its batch's
+   distance block on the card) held against the main phase's ground truth
+   but for ties; the k-means assignment on the card against the host's on a
+   sample; ``IVFIndex`` with 440 lists and 6 iterations (assignment on the
+   card and update on the host timed apart), searched at nprobe=64 with
+   ``next(100)``; packed mode's batch; one line of recall@100 and batch
+   time for eCP-FS file mode (quantized) and packed mode, the federation
+   and IVF, against BruteForce.  No hand-written kernel launches.
+   ``HNSWLite`` and ``VamanaLite`` do no device work and take minutes to
+   build at these widths: the CPU tests hold them.
+3d. serve: the serving path (``launch/serve.py``'s ``Server``) on the same
    200k collection.  (a) Interactive: the int8 v3 blob opened
    ``quantized=True``, 16 single-query searches (k=100, b=64) and 8
    ``more(100)``, each bit-identical to the fp engine; the grouped
@@ -195,6 +217,13 @@ N_DECODE = 16
 PREFETCH_CAP = 256 << 20
 LEGACY_S = 30.0
 SESSION_BYTES = 64 << 20
+# the federation: shards of the main collection (contiguous slices, as
+# build_federation splits it) and the queries it answers; IVF's lists match
+# the main index's 440 leaves, its iterations benchmarks/indexes.py's
+FED_SHARDS = 4
+FED_QUERIES = 32
+IVF_LISTS = 440
+IVF_ITERS = 6
 
 
 def log(*a) -> None:
@@ -249,6 +278,11 @@ def compare_topk(what: str, dk, ik, dp, ip) -> float:
             f"{what}: row {r} pos {j}: id {x} at {dk[r, j]} vs {ref_d}"
         )
     return float(err.max()) if err.size else 0.0
+
+
+def recall(ids, gt, k: int) -> float:
+    """Recall@k of result rows ``ids`` against ground-truth rows ``gt``."""
+    return float(np.mean([len(set(gt[r][:k]) & set(ids[r][ids[r] >= 0])) / k for r in range(len(ids))]))
 
 
 # ------------------------------------------------------------------ kernels
@@ -785,7 +819,7 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
         d = (qs * qs).sum(1)[:, None] + (xs * xs).sum(1)[None, :] - 2 * (qs @ xs.T)
         gt = torch.topk(d, cfg.k, dim=1, largest=False).indices.cpu().numpy()
     del xs
-    out["recall_at_k"] = float(np.mean([len(set(gt[r]) & set(rs.ids[r])) / cfg.k for r in range(len(Q))]))
+    out["recall_at_k"] = recall(rs.ids, gt, cfg.k)
     from repro_torch.core.store import BlobStore
 
     bst = BlobStore(blob)
@@ -799,7 +833,7 @@ def run_path(tag: str, work: Path, data, Q, cfg, res: dict, *, scorer_rows: int)
     log(f"[{tag}] grouped kernel a round: {pr['kernel']:.6f} ms against its bound {pr['kernel_bound']:.6f} ms "
         f"({pr['code_mb']:.3f} MB of codes a round at {HBM_BYTES_PER_S / 1e12} TB/s; "
         f"{pr['h2d_mb']:.3f} MB staged with the padding), {qt['rounds']} rounds")
-    return {"blob": blob, "store": bst, "fs": fs, "fp_ids": frs.ids, "n_items": len(data),
+    return {"blob": blob, "store": bst, "fs": fs, "fp_ids": frs.ids, "n_items": len(data), "gt": gt,
             "ids": rs.ids, "dists": rs.dists, "nx_ids": nx.ids, "nx_dists": nx.dists}
 
 
@@ -1427,6 +1461,246 @@ def phase_session(Q, Q2, res: dict, built: dict, built2: dict, cfg) -> None:
         f"{out['launches']['session']}; {out['part_s']['session']:.3f} s")
 
 
+# ------------------------------------------------------------- federation
+def stat_counters(st) -> dict:
+    """Every counter of a ``SearchStats``, its ``IOStats`` included."""
+    io = st.io.as_dict()
+    return {**{f: getattr(st, f) for f in ("node_loads", "nodes_opened", "leaves_opened", "distance_calcs",
+                                           "increments", "rounds", "dedup_hits", "kernel_launches")},
+            **{f"io.{a}": v for a, v in io.items()}}
+
+
+def quant_split(times) -> dict:
+    """Indexes' ``quant_times`` summed (staging and rerank on the host
+    clock, the copy and the kernel on CUDA events), in seconds, with the
+    rounds."""
+    tot = {}
+    for t in times:
+        for a, v in t.items():
+            tot[a] = tot.get(a, 0) + v
+    return {"rounds": tot["rounds"], **{a[:-3] + "_s": tot[a] / 1e3 for a in tot if a.endswith("_ms")}}
+
+
+def phase_federation(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
+    """3b. The main collection as a federation of FED_SHARDS shards, each
+    built on the card, converted with its int8 companion and joined by a
+    manifest; ``open_index(root, quantized=True)`` with no mode opens it
+    (a federation stays one on a GPU).  FED_QUERIES queries, search and
+    ``next(k)``: (i) identical to the same federation's fp shards on the
+    host engine (a refill past a shard's candidates may order rows of equal
+    distance otherwise, ROADMAP Queue 3: counted and printed), (ii) every
+    row's allocation sums to b, each probed shard at ``b_min`` or above,
+    (iii) each row's aggregate counters are the sum of its shards', (iv)
+    the grouped kernel launched in every shard.  Then a one-shard manifest
+    over the main phase's own quantized blob answers as the main phase."""
+    import os
+
+    import torch
+    from repro_torch.configs.ecpfs_paper import build_cfg
+    from repro_torch.core import FederatedIndex, build_federation, convert, open_index
+    from repro_torch.core.federation import FederationManifest
+    from repro_torch.kernels.distance_topk import ops
+
+    out = res["federation"] = {}
+    k, b, n = cfg.k, cfg.b, FED_QUERIES
+    bc = build_cfg(cfg)
+    w0 = bytes_written()
+    t_phase = time.perf_counter()
+    root = work / "fed"
+    t0 = time.perf_counter()
+    build_federation(data, root / "fs", n_shards=FED_SHARDS, cfg=bc, backend="fstore")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries = []
+    for e in FederationManifest.load(root / "fs").shards:
+        shard = convert(str(root / "fs" / e["path"]), root / f"{e['name']}.blob", quant="int8")
+        entries.append({"name": e["name"], "path": shard.name, "backend": "blob"})
+    FederationManifest(metric=bc.metric, dim=cfg.dim, dtype=bc.storage_dtype, shards=entries).save(root)
+    shutil.rmtree(root / "fs")
+    out["convert_s"] = time.perf_counter() - t0
+    out["blob_bytes"] = sum((root / e["path"]).stat().st_size for e in entries)
+
+    fed = open_index(str(root), quantized=True)
+    assert isinstance(fed, FederatedIndex) and fed.device.type == "cuda", type(fed)
+    names = fed.shard_names
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs = fed.search(Q[:n], k, b=b)
+    out["search_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nx = rs.query.next(k)
+    out["next_s"] = time.perf_counter() - t0
+    out["launches"] = dict(ops.launches)
+    per_row = rs.query.shard_stats
+    per_shard = {nm: sum(row[nm].kernel_launches for row in per_row if nm in row) for nm in names}
+    out["shard_launches"] = per_shard
+    assert sum(per_shard.values()) == out["launches"]["grouped_distance_topk"], (per_shard, out["launches"])
+    assert all(v > 0 for v in per_shard.values()), f"a shard never launched the grouped kernel: {per_shard}"
+    # (ii) the effort split, (iii) the aggregate counters
+    allocs = rs.query.allocation
+    for r, a in enumerate(allocs):
+        assert sum(a.values()) == b and all(v >= fed.b_min for v in a.values()), (r, a)
+    for r, (tot, per) in enumerate(zip(rs.query.stats, per_row)):
+        summed = {}
+        for st in per.values():
+            for f, v in stat_counters(st).items():
+                summed[f] = summed.get(f, 0) + v
+        assert stat_counters(tot) == summed, (r, stat_counters(tot), summed)
+    probed = [len(a) for a in allocs]
+    out["probed_shards"] = {"min": min(probed), "max": max(probed), "mean": float(np.mean(probed))}
+    out["quant_times"] = quant_split(fed.shard(nm).quant_times for nm in names)
+    # (i) the same federation, fp shards on the host engine
+    fp = open_index(str(root))
+    t0 = time.perf_counter()
+    frs = fp.search(Q[:n], k, b=b)
+    fnx = frs.query.next(k)
+    out["fp_s"] = time.perf_counter() - t0
+    assert rs.ids.shape == (n, k) and np.isfinite(rs.dists).all()
+    same_rs("federation (i) search vs the fp shards", rs, frs)
+    out["next_tie_swaps"] = same_up_to_ties("federation (i) next vs the fp shards", nx, fnx)
+    fp.close()
+    fed.close()
+    out["recall_at_k"] = recall(rs.ids, built["gt"][:n], k)
+    out["single_index_recall_at_k"] = recall(built["ids"][:n], built["gt"][:n], k)
+    out["part_s"] = {"four_shards": time.perf_counter() - t_phase}
+    log(f"[federation] {FED_SHARDS} shards of {len(data)} items: built on the card in {out['build_s']:.3f} s, "
+        f"converted (int8) in {out['convert_s']:.3f} s, {out['blob_bytes'] / 1e9:.3f} GB of blobs; "
+        f"open_index(root, quantized=True) -> FederatedIndex on cuda; {n} queries k={k} b={b}: search "
+        f"{out['search_s']:.3f} s, next({k}) {out['next_s']:.3f} s; grouped launches by shard {per_shard} "
+        f"(total {out['launches']}); shards probed a row {out['probed_shards']}; the shards' scan "
+        f"{json.dumps(out['quant_times'])}; allocations sum to {b}; "
+        f"aggregate counters = the shards' sum; search identical to the fp shards ({out['fp_s']:.3f} s), "
+        f"next up to the order of equal distances ({out['next_tie_swaps']} positions swapped); recall@{k} "
+        f"{out['recall_at_k']:.4f} (the single index on the same {n} queries: "
+        f"{out['single_index_recall_at_k']:.4f})")
+    shutil.rmtree(root)
+
+    # a one-shard manifest over the main phase's own quantized blob
+    t0 = time.perf_counter()
+    one = work / "fed_one"
+    one.mkdir()
+    FederationManifest(metric=bc.metric, dim=cfg.dim, dtype=bc.storage_dtype, shards=[
+        {"name": "main", "path": os.path.relpath(built["blob"], one), "backend": "blob"}]).save(one)
+    with open_index(str(one), quantized=True) as f1:
+        ops.reset_launches()
+        r1 = f1.search(Q[:n], k, b=b)
+        same_rows("federation, one shard: search vs the main phase", r1, built["ids"][:n], built["dists"][:n])
+        same_rows("federation, one shard: next vs the main phase", r1.query.next(k),
+                  built["nx_ids"][:n], built["nx_dists"][:n])
+        out["one_shard_launches"] = dict(ops.launches)
+        out["one_shard_quant_times"] = quant_split([f1.shard("main").quant_times])
+    shutil.rmtree(one)
+    out["part_s"]["one_shard"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    w1 = bytes_written()
+    out["bytes_written"] = None if w0 is None else w1 - w0
+    log(f"[federation] a one-shard manifest over the main blob: {n} queries + next({k}) identical to the main "
+        f"phase in {out['part_s']['one_shard']:.3f} s (launches {out['one_shard_launches']}; its scan "
+        f"{json.dumps(out['one_shard_quant_times'])}, the main phase's batch of {len(Q)} "
+        f"{json.dumps(quant_split([res['main']['quant_times']]))}); phase "
+        f"{out['phase_s']:.3f} s; bytes written by the phase {out['bytes_written']}, by the run so far {w1}")
+
+
+# -------------------------------------------------------------- baselines
+def phase_baselines(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
+    """3c. The paper's baselines on the main collection as stored (float16,
+    as float32): ``BruteForce`` (the batch's distance block on the card)
+    held against the main phase's ground truth; ``IVFIndex`` with IVF_LISTS
+    lists (the main index's leaves) and IVF_ITERS k-means iterations, the
+    assignment on the card (held against the host's on a sample) and the
+    update on the host, timed apart; its search at nprobe = b (the paper's
+    matching) and ``next(k)``; packed mode's batch; then one line of
+    recall@k and batch time for eCP-FS (file mode quantized, packed), the
+    federation and IVF, all against BruteForce.  ``HNSWLite`` and
+    ``VamanaLite`` do no device work in either package and their Python
+    builds take minutes at these widths: the CPU tests hold them."""
+    import torch
+    from repro_torch.core import BatchedSearcher, open_index
+    from repro_torch.core.baselines import BruteForce, IVFIndex, kmeans
+    from repro_torch.core.distances import np_distances, torch_distances
+    from repro_torch.kernels.distance_topk import ops
+
+    out = res["baselines"] = {}
+    k, b, metric = cfg.k, cfg.b, cfg.metric
+    t_phase = time.perf_counter()
+    stored = data.astype(np.float16).astype(np.float32)
+    ops.reset_launches()
+    # ---- brute force: the device block, then the host argsort
+    bf = BruteForce(stored, metric)
+    bf.search(Q[:2], k)  # the collection goes to the card once
+    t0 = time.perf_counter()
+    brs = bf.search(Q, k)
+    out["bf_s"] = time.perf_counter() - t0
+    qt = torch.from_numpy(Q).cuda()
+    out["bf_block_ms"] = cuda_ms(lambda: torch_distances(qt, bf._device_data(), metric), iters=5, warmup=1)
+    err = 0.0
+    for r in range(len(Q)):  # the ground truth's distances on the host, in its order
+        g = built["gt"][r]
+        dg = np_distances(Q[r], stored[g], metric)[None]
+        err = max(err, compare_topk(f"BruteForce row {r} vs the main phase's ground truth",
+                                    brs.dists[r : r + 1], brs.ids[r : r + 1], dg, g[None]))
+    out["bf_vs_gt"] = {"max_abs_err": err, "positions_differing": int((brs.ids != built["gt"]).sum())}
+    del bf
+    # ---- IVF: k-means with the assignment on the card
+    sample = stored[:20000]
+    dev = kmeans(sample, 64, iters=2, metric=metric)
+    host = kmeans(sample, 64, iters=2, metric=metric, device="cpu")
+    out["kmeans_sample_assign_equal"] = float(np.mean(dev[1] == host[1]))
+    assert out["kmeans_sample_assign_equal"] > 0.999, out["kmeans_sample_assign_equal"]
+    timings = {}
+    t0 = time.perf_counter()
+    ivf = IVFIndex(stored, n_lists=IVF_LISTS, train_iters=IVF_ITERS, metric=metric, timings=timings)
+    out["ivf_build_s"] = time.perf_counter() - t0
+    out["kmeans_s"] = timings
+    sizes = np.array([len(x) for x in ivf.lists])
+    assert sizes.sum() == len(stored)
+    t0 = time.perf_counter()
+    irs = ivf.search(Q, k, b=b)
+    out["ivf_search_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inx = irs.query.next(k)
+    out["ivf_next_s"] = time.perf_counter() - t0
+    assert irs.ids.shape == (len(Q), k) and np.isfinite(irs.dists).all() and inx.ids.shape == (len(Q), k)
+    assert not (set(irs.ids[0]) & set(inx.ids[0]))
+    out["launches"] = dict(ops.launches)
+    assert not any(out["launches"].values()), f"the baselines launched a hand-written kernel: {out['launches']}"
+    del ivf
+    # ---- packed mode's batch, for the comparison
+    t0 = time.perf_counter()
+    pk = open_index(str(built["fs"]))
+    assert isinstance(pk, BatchedSearcher), type(pk)
+    out["packed_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prs = pk.search(Q, k, b=b, b_internal=pk.info.nodes_per_level[0])
+    out["packed_s"] = time.perf_counter() - t0
+    del pk
+    torch.cuda.empty_cache()
+    n = FED_QUERIES
+    fed = res["federation"]
+    out["compare"] = {
+        "eCP-FS file, quantized": {"queries": len(Q), "recall": recall(built["ids"], brs.ids, k),
+                                   "batch_s": res["main"]["search_s"]},
+        "eCP-FS packed": {"queries": len(Q), "recall": recall(prs.ids, brs.ids, k), "batch_s": out["packed_s"]},
+        f"federation, {FED_SHARDS} shards": {"queries": n, "recall": fed["recall_at_k"], "batch_s": fed["search_s"],
+                                             "single_index_recall": fed["single_index_recall_at_k"]},
+        f"IVF, nprobe={b}": {"queries": len(Q), "recall": recall(irs.ids, brs.ids, k), "batch_s": out["ivf_search_s"]},
+        "BruteForce": {"queries": len(Q), "recall": 1.0, "batch_s": out["bf_s"]},
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[baselines] BruteForce over {stored.shape} ({metric}): {len(Q)} queries in {out['bf_s']:.3f} s (the "
+        f"device block {out['bf_block_ms']:.3f} ms, the rest the host argsort); ids those of the main phase's "
+        f"ground truth but for ties {json.dumps(out['bf_vs_gt'])}; k-means assignment on the card equals the "
+        f"host's on a 20000-row sample ({out['kmeans_sample_assign_equal']:.6f}); IVF {IVF_LISTS} lists "
+        f"({sizes.min()}-{sizes.max()} rows), {IVF_ITERS} iterations: {out['ivf_build_s']:.3f} s (assignment on "
+        f"the card {timings['assign_s']:.3f} s, update on the host {timings['update_s']:.3f} s); search "
+        f"{out['ivf_search_s']:.3f} s, next({k}) {out['ivf_next_s']:.3f} s; packed load {out['packed_load_s']:.3f} "
+        f"s; launches {out['launches']}; phase {out['phase_s']:.3f} s")
+    log(f"[baselines] the paper's comparison at {len(data)} items, recall@{k} against BruteForce and batch "
+        f"seconds: {json.dumps(out['compare'])}")
+
+
+
 # ------------------------------------------------------------ flash kernel
 def flash_ops(B, Hq, Sq, Skv, d, lens, causal) -> int:
     """Operations one call needs: 4*d (two multiply-adds) per live (query
@@ -1891,6 +2165,10 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
         log(f"[main] phase done at {time.time() - t_all:.1f} s")
         phase_read_path(work, Q, cfg, res, built)
         log(f"[read] (a)-(d) done at {time.time() - t_all:.1f} s")
+        phase_federation(work, data, Q, cfg, res, built)
+        log(f"[federation] phase done at {time.time() - t_all:.1f} s")
+        phase_baselines(work, data, Q, cfg, res, built)
+        log(f"[baselines] phase done at {time.time() - t_all:.1f} s")
         phase_serve(work, data, Q, cfg, res, built, args.seed)
         log(f"[serve] phase done at {time.time() - t_all:.1f} s")
         (work / "main.blob").unlink()  # the fstore stays for the session, (e)
@@ -1928,7 +2206,10 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
                                  "code_mb": pr["code_mb"], "rounds": res["main"]["quant_times"]["rounds"]},
          "serve_launches": {p: res["serve"][f"{p}_launches"]["grouped_distance_topk"]
                             for p in ("interactive", "concurrent")},
-         "read_path_launches": {p: v["grouped_distance_topk"] for p, v in res["read"]["launches"].items()}},
+         "read_path_launches": {p: v["grouped_distance_topk"] for p, v in res["read"]["launches"].items()},
+         "federation_launches": {**res["federation"]["shard_launches"],
+                                 "one_shard": res["federation"]["one_shard_launches"]["grouped_distance_topk"]},
+         "baselines_launches": res["baselines"]["launches"]["grouped_distance_topk"]},
         {"name": "distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
@@ -1940,6 +2221,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
                       for n, v in res["topk_by_n"].items()},
          "scorer_call": res["scorer_call"],
          "read_path_launches": {"session": res["read"]["launches"]["session"]["distance_topk"]},
+         "federation_launches": res["federation"]["launches"]["distance_topk"],
+         "baselines_launches": res["baselines"]["launches"]["distance_topk"],
          "merge_path": {**res["topk_merge"], "shape": "B=128 N=65536 D=1152 f32 l2 k=100"}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",

@@ -24,6 +24,15 @@ packed-mode retrieval.
   Store / open_store / convert    — fstore and blob (v1/v2/v3) backends,
                                     and AsyncPrefetchStore (threaded
                                     prefetch, throttled by its accuracy)
+  FederatedIndex / build_federation — one logical index over N shard files
+                                    (federation.py): manifest-described
+                                    shards, router-scored scatter-gather
+                                    with conserved effort split, routed
+                                    inserts, fan-out deletes, per-shard
+                                    background compaction; each shard's
+                                    device work runs on ``device``
+  baselines                       — BruteForce / IVF (k-means assignment
+                                    on the device) / HNSWLite / VamanaLite
 """
 from .api import (
     MultiIndexSession,
@@ -40,6 +49,15 @@ from .api import (
 )
 from .batched import BatchedQuery, BatchedQueryState, BatchedSearcher
 from .build import ECPBuildConfig, build_index
+from .federation import (
+    FederatedIndex,
+    FederatedQuery,
+    FederatedSnapshot,
+    FederationInfo,
+    FederationManifest,
+    allocate_effort,
+    build_federation,
+)
 from .frontier import CandidateBuffer, Frontier
 from .fstore import FStore
 from .layout import IndexInfo, derive_shape
@@ -82,6 +100,13 @@ __all__ = [
     "build_index",
     "build_index_streaming",
     "reservoir_sample",
+    "FederatedIndex",
+    "FederatedQuery",
+    "FederatedSnapshot",
+    "FederationInfo",
+    "FederationManifest",
+    "allocate_effort",
+    "build_federation",
     "BatchedQuery",
     "BatchedQueryState",
     "BatchedSearcher",

@@ -17,12 +17,12 @@
   * ``open_index(path, mode="file"|"packed"|"auto")`` — the file-structure
     searcher (``ECPIndex``) or the device-resident one
     (``BatchedSearcher``); "auto" (the default) picks packed mode when the
-    device is a GPU, as the reference does on any accelerator.
+    device is a GPU, as the reference does on any accelerator.  A path
+    holding a ``federation.json`` opens as a ``FederatedIndex``
+    (core/federation.py), file mode only.
   * ``MultiIndexSession`` — N indexes under ONE shared byte-budget
     ``NodeCache``: a global LRU across indexes, runtime-resizable (the
     paper's §4.2 knob made fleet-wide).
-
-Not ported yet (ROADMAP Queue 1 #8): federations.
 """
 from __future__ import annotations
 
@@ -481,15 +481,34 @@ def open_index(
     tombstones (``load_packed`` raises ``ValueError`` until ``compact()``),
     so "auto" on a GPU raises on an index with deletes; ``mode="file"``
     searches it.
+
+    A path holding a federation manifest (``federation.json``) opens as a
+    ``FederatedIndex`` — one logical index scatter-gathering over its
+    shards (core/federation.py).  It is file-mode only: "auto" keeps it a
+    federation on a GPU too, and "packed" raises ``ValueError``.  Its
+    shards run their device work on ``device``.
     """
     if mode not in ("file", "packed", "auto"):
         raise ValueError(f"unknown open_index mode: {mode!r} (file|packed|auto)")
-    if isinstance(path, (str, os.PathLike)) and os.path.isfile(
-        os.path.join(os.fspath(path), "federation.json")
-    ):
-        raise NotImplementedError(
-            "federated indexes are not ported yet (ROADMAP Queue 1 #8, 'Federation')"
-        )
+    if isinstance(path, (str, os.PathLike)):
+        from .federation import FederatedIndex, find_manifest
+
+        if find_manifest(path) is not None:
+            if mode not in ("auto", "file"):
+                raise ValueError(
+                    f"a federated index only supports mode='file', got {mode!r}"
+                )
+            return FederatedIndex(
+                path,
+                backend=backend,
+                prefetch=prefetch,
+                cache=cache,
+                namespace=namespace,
+                cache_max_nodes=cache_max_nodes,
+                cache_max_bytes=cache_max_bytes,
+                device=device,
+                **kw,
+            )
     wants_cache = (
         cache is not None
         or namespace is not None
@@ -589,7 +608,15 @@ class MultiIndexSession:
         self.cache.resize(cache_nodes, max_bytes=cache_bytes)
 
     def stats(self) -> dict:
-        per = self.cache.namespace_stats()
+        raw = self.cache.namespace_stats()
+        # a federated index registers its shards under "<name>/<shard>"
+        # namespaces: roll those up so per_index charges each index for
+        # everything it holds
+        per: dict = {}
+        for ns, (n, b) in raw.items():
+            base = ns.split("/", 1)[0]
+            pn, pb = per.get(base, (0, 0))
+            per[base] = (pn + n, pb + b)
         return {
             "indexes": self.names(),
             "resident_nodes": self.cache.n_resident,

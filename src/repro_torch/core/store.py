@@ -79,6 +79,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -107,6 +108,8 @@ __all__ = [
 
 BLOB_MAGIC = b"ECPBLOB1"
 BLOB_FILENAME = "index.blob"
+# reads of a blob header before a torn one (a concurrent rewrite) fails the open
+_HEADER_READS = 8
 
 
 # ------------------------------------------------------------------- IOStats
@@ -468,15 +471,12 @@ class BlobStore:
         except OSError:  # EACCES, EROFS (read-only mounts), ...
             self._fd = os.open(p, os.O_RDONLY)
             self._writable = False
-        head = os.pread(self._fd, 16, 0)
-        if head[:8] != BLOB_MAGIC:
+        try:
+            self._header = self._read_header(p)
+        except BaseException:
             os.close(self._fd)
             self._fd = -1
-            raise ValueError(f"not an ecp-blob file (bad magic): {p}")
-        (hlen,) = np.frombuffer(head[8:16], "<u8")
-        raw = os.pread(self._fd, int(hlen), 16)
-        self.io.count(16 + int(hlen), files=1, reads=2)
-        self._header = json.loads(raw.decode("utf-8"))
+            raise
         h = self._header
         fmt = str(h.get("format", "ecp-blob/1"))
         self.format = 3 if fmt.endswith("/3") else 2 if fmt.endswith("/2") else 1
@@ -969,6 +969,36 @@ class BlobStore:
             self._install_v2_locked(raw, header)
             if retire:
                 self._retired.append((self._mvcc_seq, slot))
+
+    def _read_header(self, p: Path) -> dict:
+        """The JSON header, read as the length word and then the JSON.
+
+        A writer installs a header in one ``pwrite`` of magic, length, JSON
+        and padding, which a concurrent reader's two ``pread`` calls can tear:
+        the old length with the new JSON.  A header read is whole when the
+        magic is right, the JSON parses, and it ends exactly at the length
+        (``json.dumps`` writes no trailing blanks; the padding is blanks).
+        A torn read is retried, a few times with a short pause, before the
+        open fails as it did on a bad header."""
+        for attempt in range(_HEADER_READS):
+            head = os.pread(self._fd, 16, 0)
+            if head[:8] != BLOB_MAGIC:
+                raise ValueError(f"not an ecp-blob file (bad magic): {p}")
+            (hlen,) = np.frombuffer(head[8:16], "<u8")
+            raw = os.pread(self._fd, int(hlen), 16)
+            self.io.count(16 + int(hlen), files=int(attempt == 0), reads=2)
+            try:
+                header = json.loads(raw.decode("utf-8"))
+            except ValueError:  # UnicodeDecodeError and JSONDecodeError
+                header = None
+            if isinstance(header, dict) and raw.endswith(b"}"):
+                return header
+            if attempt + 1 < _HEADER_READS:
+                time.sleep(0.001 * (attempt + 1))
+        raise ValueError(
+            f"blob header of {p} did not read whole in {_HEADER_READS} tries "
+            f"(length {int(hlen)}; a writer rewriting it, or a corrupt file)"
+        )
 
     def _check_fits(self, raw: bytes) -> bytes:
         if 16 + len(raw) > self.data_offset:
@@ -1660,7 +1690,28 @@ def open_store(
     else:
         p = Path(path)
         if backend == "auto":
-            backend = "blob" if p.is_file() or (p / BLOB_FILENAME).is_file() else "fstore"
+            if p.is_file() or (p / BLOB_FILENAME).is_file():
+                backend = "blob"
+            else:
+                if p.is_dir() and not create and not (p / ".zgroup").exists():
+                    # a directory that is not itself an index but HOLDS
+                    # index-looking children is almost certainly a shard
+                    # collection missing its federation manifest — say so
+                    # instead of failing deep inside the fstore parser
+                    from .federation import discover_shards  # it imports this module
+
+                    shards = [e["path"] for e in discover_shards(p)]
+                    if shards:
+                        raise ValueError(
+                            f"{p} is not an index: it contains what look like "
+                            f"per-shard index files ({', '.join(shards[:4])}"
+                            f"{', ...' if len(shards) > 4 else ''}) but no "
+                            "federation manifest.  To open them as one "
+                            "federated index, write a 'federation.json' "
+                            "manifest (repro_torch.core.federation.FederationManifest) "
+                            "or open a single shard path directly."
+                        )
+                backend = "fstore"
         if backend == "fstore":
             store = FStoreBackend(p, create=create)
         elif backend == "blob":

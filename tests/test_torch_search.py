@@ -181,14 +181,17 @@ def test_cuda_is_asked_for_by_default(ref_blob):
 
 
 def test_unported_modes_say_so(ref_blob, tmp_path):
-    """Federations are the one file-mode entry still unported, and say so;
+    """No file-mode entry is left unported: a federation manifest opens as a
+    federation (a malformed one raises the reference's ``ValueError``), and
     the modes that used to raise here (legacy engine, prefetch, pinned
     internal levels, prefetch of levels, saved queries) work and give the
     reference's results."""
     _, blob, Q = ref_blob
     (tmp_path / "federation.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
+    with pytest.raises(ValueError, match="not a federation manifest"):
         open_index(str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="not a federation manifest"):
+        ref_open(str(tmp_path))
     want = ref_open(blob, mode="file").search(Q, K, b=B_EXP)
     for kw in ({"engine": "legacy"}, {"prefetch": True}, {"backend": "blob+prefetch"},
                {"pin_internal": True}):
