@@ -18,12 +18,25 @@ Phases, none of whose failures is caught:
    back-to-back calls on one stream; every finish counter back at 0.  Two
    faults planted in copies of the grouped kernel (its merge breaking ties
    by distance alone, its work list skipping a group's last tile) must make
-   these checks fail.  Times each distance kernel four ways: the wrapper
+   these checks fail.  Then distance_topk's k < N path at its caller's
+   shape (B=1 against 1M candidates, k=100, d = 32, 18 and 16: ip, l2 and
+   cosine in float32, ip in bf16 at d = 32) and at its edges (k of 1, 100
+   and N - 1, N = 1000 and 1 000 003, B = 4, equal rows across blocks,
+   unaligned candidates), with two faults planted in copies of it (the
+   last block dropping one list; the tail chunk a row short) that must
+   make these checks fail.  Times each distance kernel four ways: the wrapper
    call under CUDA events (``ms``), its kernels' own time from
    ``torch.profiler`` (``device_ms``), the same two for a library
    yardstick (timed here only, never called by the port), beside the
    bound; the grouped kernel also at the main path's skew (one leaf of
    5360 rows among 455-row ones, padded to 5360).
+2a. recsys: the four architectures of ``configs/recsys_archs.py`` at full
+   width, random parameters from a seeded generator on the card:
+   ``serve_p99`` (a ``ctr_batch`` of 512; sigmoid(forward) on the card
+   within 1e-4 of the CPU's) and ``retrieval_cand`` (``user_tower`` of one
+   request, then ``candidate_scores`` over 1M candidate embeddings drawn on
+   the card, k=100: one ``distance_topk`` launch counted from 0, held
+   against its plain version and against ``torch.mm`` + ``torch.topk``).
 3. main path at the paper's widths (``configs/ecpfs_paper.py``: dim 1152,
    float16 storage, cosine, cluster_cap 455, L=2, b=64, k=100, a batch of
    128, int8 companion): build on the card -> convert(quant="int8") ->
@@ -184,7 +197,20 @@ FAULTS = {
                                "return a < b;", "return (a >> 32) <= (b >> 32);"),
     "skip_last_tile": ("grouped_distance_topk", "grouped_distance_topk.cu",
                        "return (n + kTile - 1) / kTile;", "return (n - 1) / kTile + (n <= kTile);"),
+    # distance_topk's k < N path: the last block of a row reads one list
+    # fewer (the last block's, which holds the tail), and the chunk that
+    # holds the tail stops a row short
+    "split_drops_a_list": ("distance_topk", "distance_topk.cu",
+                           "const bool have = l < m;", "const bool have = l < m - 1;"),
+    "split_tail_mask": ("distance_topk", "distance_topk.cu",
+                        "return min(a.N, r0 + a.rpb);", "return min(a.N - 1, r0 + a.rpb);"),
 }
+# the recsys retrieval tower (configs/shapes.py RECSYS_SHAPES["retrieval_cand"]:
+# one request against 1M candidates; k = 100 as the reference's retrieval
+# cell, launch/cells.py) at the embedding widths of configs/recsys_archs.py:
+# bst 32, dien 18, autoint and dcn-v2 16
+SPLIT_K = 100
+RECSYS_WIDTHS = (32, 18, 16)
 FLASH_CASES = [  # tests/test_kernels.py:146-153
     (2, 4, 2, 128, 128, 64, True, None),
     (2, 4, 4, 128, 128, 64, False, None),
@@ -323,9 +349,12 @@ def grouped_bound_ms(G, rows, k, itemsize=1):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def topk_bound_ms(B, N, k, dtype="float32", itemsize=4):
-    nbytes = (B + N) * D * itemsize + B * k * 8
-    ops = 2 * B * N * D + 2 * N * D
+def topk_bound_ms(B, N, k, dtype="float32", itemsize=4, d=D):
+    """Least time of distance_topk: q and c read once, the top-k written
+    once; a multiply-add per (query, row, element) and one for each row's
+    norm."""
+    nbytes = (B + N) * d * itemsize + B * k * 8
+    ops = 2 * B * N * d + 2 * N * d
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -740,6 +769,194 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
         log(f"[kernels] distance_topk B=1 N_pad={n_pad} D={D} f32 cosine k={n_pad}: {json.dumps(t)}")
     res["topk"] = res["topk_by_n"][512]
     counters_at_rest()
+
+
+# ------------------------------------------------------------ the k < N path
+def split_edges(tag: str) -> list[str]:
+    """distance_topk's k < N path against its plain version at the edges of
+    its design; returns what failed (empty when everything agrees).  Launch
+    errors are not caught.  The cases: k of 1, 100 and N - 1 at N = 1000
+    (four 256-row blocks; one block at k = N - 1); N = 1 000 003 at d = 18,
+    whose last stage is 67 rows, 4824 bytes (the copy engine brings 4816,
+    the threads the last 8), with its last row the nearest; B = 4 at N = 1M;
+    a run of 150 equal rows across the boundary of the first two blocks
+    and 50 more in the last one, the nearest rows (ties: the lowest 100
+    indices, in order); the candidates one row off their allocation (not
+    16-byte aligned: no bulk copies)."""
+    import torch
+    from repro_torch.kernels.distance_topk import ops, ref
+
+    fails = []
+
+    def check(what, fn):
+        try:
+            fn()
+        except AssertionError as e:
+            fails.append(f"{tag} {what}: {e}")
+
+    def case(what, q, c, k, metric, extra=None):
+        dk, ik = ops.distance_topk(q, c, k, metric)
+        dp, ip = ref.distance_topk_ref(q, c, k, metric)
+        check(what, lambda: (compare_topk("", dk, ik, dp, ip), extra and extra(dk, ik)))
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    c = torch.randn(1000, 18, generator=g, device="cuda")
+    q = torch.randn(1, 18, generator=g, device="cuda")
+    for k in (1, SPLIT_K, 999):
+        for metric in ("l2", "ip", "cosine"):
+            case(f"N=1000 d=18 k={k} {metric}", q, c, k, metric)
+    N = 1_000_003
+    c = torch.randn(N, 18, generator=g, device="cuda")
+    q = torch.randn(1, 18, generator=g, device="cuda")
+    c[-1] = 50 * q[0]
+
+    def last_first(dk, ik):
+        assert int(ik[0, 0]) == c.shape[0] - 1, f"the last row is not first: {ik[0, :3].tolist()}"
+    case(f"N={N} d=18 ip, the last row nearest", q, c, SPLIT_K, "ip", last_first)
+    case(f"N={N} d=18 l2", q, c, SPLIT_K, "l2")
+    case(f"N={N - 1} d=18 ip, not 16-byte aligned", q, c[1:], SPLIT_K, "ip")
+    qb = torch.randn(4, 32, generator=g, device="cuda")
+    cb = torch.randn(1_000_000, 32, generator=g, device="cuda")
+    case("B=4 N=1000000 d=32 ip", qb, cb, SPLIT_K, "ip")
+    case("B=4 N=1000000 d=32 cosine", qb, cb, SPLIT_K, "cosine")
+    nblk = ops.topk_split_plan(1, cb.shape[0], 32, SPLIT_K, ops._optin[torch.cuda.current_device()])
+    rpb = -(-(-(-cb.shape[0] // nblk)) // ops.SPLIT_NARROW_ROWS) * ops.SPLIT_NARROW_ROWS  # rows a block
+    runs = [*range(rpb - 70, rpb + 80), *range(cb.shape[0] - 50, cb.shape[0])]
+    cb[runs] = qb[0] + 0.01
+    want = runs[:SPLIT_K]
+
+    def lowest_first(dk, ik):
+        ties_in_order("", dk, ik)
+        assert ik[0].tolist() == want, f"equal rows not in index order: {ik[0, :5].tolist()} ..."
+    case(f"{len(runs)} equal nearest rows across blocks l2", qb[:1], cb, SPLIT_K, "l2", lowest_first)
+    case(f"{len(runs)} equal nearest rows across blocks ip", qb[:1], cb, SPLIT_K, "ip")
+    check("finish counters", counters_at_rest)
+    return fails
+
+
+def phase_split(res: dict, fault_builds: dict) -> None:
+    """distance_topk's k < N path at its caller's shape (candidate_scores:
+    B = 1, N = 1M, k = 100, d = 32 / 18 / 16), its edges, the planted
+    faults, and its times four ways."""
+    import torch
+    from repro_torch.kernels.distance_topk import ops, ref
+
+    N = 1_000_000
+    g = torch.Generator(device="cuda").manual_seed(30)
+    err, times = 0.0, {}
+    for d in RECSYS_WIDTHS:
+        c = torch.randn(N, d, generator=g, device="cuda")
+        q = torch.randn(1, d, generator=g, device="cuda")
+        cases = [("ip", torch.float32), ("l2", torch.float32), ("cosine", torch.float32)]
+        if d == 32:
+            cases.append(("ip", torch.bfloat16))
+        for metric, dt in cases:
+            dk, ik = ops.distance_topk(q.to(dt), c.to(dt), SPLIT_K, metric)
+            dp, ip = ref.distance_topk_ref(q.to(dt), c.to(dt), SPLIT_K, metric)
+            err = max(err, compare_topk(f"distance_topk k<N d={d} {metric} {dt}", dk, ik, dp, ip))
+        log(f"[split] distance_topk B=1 N={N} d={d} k={SPLIT_K}: ip/l2/cosine f32"
+            f"{', ip bf16' if d == 32 else ''} agree (max abs err so far {err:.3g})")
+        kern = lambda: ops.distance_topk(q, c, SPLIT_K, "ip")
+        t = {**four_ways(kern, lambda: torch.topk(torch.mm(q, c.T), SPLIT_K, dim=1), 50),
+             "plain_ms": cuda_ms(lambda: ref.distance_topk_ref(q, c, SPLIT_K, "ip"), 20),
+             "stream_ms": cuda_ms(lambda: c.sum(), 50)}  # one read of the candidates, a yardstick
+        t["bound_ms"], t["bound_by"] = topk_bound_ms(1, N, SPLIT_K, d=d)
+        t["blocks"] = ops.topk_split_plan(1, N, d, SPLIT_K, ops._optin[torch.cuda.current_device()])
+        n0 = ops.launches["distance_topk"]
+        kern()
+        counted = ops.launches["distance_topk"] - n0
+        assert t["kernels_per_call"] == 1 and counted == 1, \
+            f"distance_topk k<N makes {t['kernels_per_call']} kernels a call in a CUDA graph and counts {counted}"
+        times[d] = t
+        log(f"[split] distance_topk B=1 N={N} d={d} f32 ip k={SPLIT_K}: {json.dumps(t)}")
+        del c, q
+    res["split"], res["split_err"] = times, err
+    fails = split_edges("real kernel")
+    assert not fails, "the k < N path disagrees at its edges:\n" + "\n".join(fails)
+    log("[split] edges agree: k=1/100/N-1 at N=1000, N=1000003 (a tail under 16 bytes, the last row first), "
+        "B=4, equal rows across blocks in index order, unaligned candidates; finish counters at 0")
+    for name, fault in load_faults(fault_builds, "distance_topk").items():
+        with planted(fault):
+            seen = split_edges(name)
+        counters_at_rest()
+        assert seen, f"the k < N checks do not see the planted fault {name}"
+        log(f"[split] planted fault {name}: {len(seen)} checks fail, first: {seen[0][:300]}")
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------- recsys
+def phase_recsys(res: dict, seed: int) -> None:
+    """The four recsys architectures at full width (configs/recsys_archs.py),
+    random parameters from a seeded generator on the card: serve_p99 (a
+    ctr_batch of 512, sigmoid(forward) on the card against the same on the
+    CPU) and retrieval_cand (one request: user_tower, then candidate_scores
+    over 1M candidate embeddings drawn on the card, k = 100: one
+    distance_topk launch, held against its plain version and against
+    torch.mm + torch.topk)."""
+    import torch
+    from repro_torch.configs import recsys_archs, shapes
+    from repro_torch.data.synthetic import ctr_batch
+    from repro_torch.kernels.distance_topk import ops, ref
+    from repro_torch.models import recsys as R
+    from repro_torch.models.base import param_count
+
+    serve, retr = shapes.RECSYS_SHAPES["serve_p99"], shapes.RECSYS_SHAPES["retrieval_cand"]
+    log(f"reduced: recsys none (full widths and vocabularies; serve_p99 at batch {serve['batch']}, "
+        f"retrieval_cand at batch {retr['batch']} against {retr['n_candidates']} candidates); "
+        "train_batch and serve_bulk not run")
+    out = {}
+    for name in recsys_archs.ARCHS:
+        cfg = recsys_archs.get(name)
+        part = {"params": param_count(R.param_specs(cfg))}
+        kw = dict(field_vocabs=cfg.field_vocabs, n_dense=cfg.n_dense, seq_len=cfg.seq_len,
+                  seq_fields=cfg.seq_fields)
+        t0 = time.perf_counter()
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        params = R.init_params(cfg, g, device="cuda")
+        torch.cuda.synchronize()
+        part["init_s"] = time.perf_counter() - t0
+        # serve_p99: the card against the CPU on the same parameters and batch
+        batch = ctr_batch(seed, 0, batch=serve["batch"], **kw)
+        t0 = time.perf_counter()
+        p_card = torch.sigmoid(R.forward(params, batch, cfg))
+        torch.cuda.synchronize()
+        part["serve_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = {k: v.cpu() for k, v in params.items()}
+        p_cpu = torch.sigmoid(R.forward(cpu, batch, cfg))
+        part["serve_cpu_s"] = time.perf_counter() - t0
+        p_card = p_card.cpu()
+        assert p_card.shape == (serve["batch"],) and torch.isfinite(p_card).all(), name
+        rel = float(((p_card - p_cpu).abs() / p_cpu.abs().clamp_min(1.0)).max())
+        assert rel <= RTOL, f"{name} serve_p99: card and CPU differ by {rel} (tolerance {RTOL})"
+        part["serve_rel_err"] = rel
+        del cpu
+        # retrieval_cand: one request, its top 100 of 1M candidates
+        one = ctr_batch(seed, 1, batch=retr["batch"], **kw)
+        cand = torch.randn(retr["n_candidates"], cfg.embed_dim, generator=g, device="cuda")
+        t0 = time.perf_counter()
+        qv = R.user_tower(params, one, cfg)
+        torch.cuda.synchronize()
+        part["tower_s"] = time.perf_counter() - t0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        s, i = R.candidate_scores(qv, cand, SPLIT_K)
+        torch.cuda.synchronize()
+        part["scores_s"] = time.perf_counter() - t0
+        part["launches"] = dict(ops.launches)
+        assert part["launches"] == {"distance_topk": 1, "grouped_distance_topk": 0}, part["launches"]
+        assert s.shape == i.shape == (1, SPLIT_K) and torch.isfinite(s).all(), name
+        t0 = time.perf_counter()
+        dp, ip = ref.distance_topk_ref(qv, cand, SPLIT_K, "ip")
+        part["max_abs_err"] = compare_topk(f"{name} candidate_scores against the plain version", -s, i, dp, ip)
+        ls, li = torch.topk(torch.mm(qv, cand.T), SPLIT_K, dim=1)
+        compare_topk(f"{name} candidate_scores against torch.mm + torch.topk", -s, i, -ls, li.int())
+        part["check_s"] = time.perf_counter() - t0
+        out[name] = part
+        log(f"[recsys] {name} (d={cfg.embed_dim}): {json.dumps(part)}")
+        del params, cand, qv
+        torch.cuda.empty_cache()
+    res["recsys"] = out
 
 
 # ---------------------------------------------------------------- main path
@@ -2144,6 +2361,10 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     """Every phase in order; returns the kernels line's entries."""
     phase_kernels(res, fault_builds)
     log(f"[kernels] phase done at {time.time() - t_all:.1f} s")
+    phase_split(res, fault_builds)
+    log(f"[split] phase done at {time.time() - t_all:.1f} s")
+    phase_recsys(res, args.seed)
+    log(f"[recsys] phase done at {time.time() - t_all:.1f} s")
     from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, ecpfs_paper_full
     from repro_torch.data.synthetic import clustered_vectors
 
@@ -2190,7 +2411,7 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     phase_lm(res, args.seed, fault_libs)
     log(f"[lm] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
-    g, t, f32k = res["grouped"], res["topk"], res["flash_32k"]
+    g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
     pr = res["main"]["per_round_ms"]
     kernels = [
@@ -2223,7 +2444,19 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "read_path_launches": {"session": res["read"]["launches"]["session"]["distance_topk"]},
          "federation_launches": res["federation"]["launches"]["distance_topk"],
          "baselines_launches": res["baselines"]["launches"]["distance_topk"],
-         "merge_path": {**res["topk_merge"], "shape": "B=128 N=65536 D=1152 f32 l2 k=100"}},
+         "recsys_launches": {a: v["launches"]["distance_topk"] for a, v in res["recsys"].items()}},
+        {"name": "distance_topk (k < N path)", "route": "cuda",
+         "source": "src/repro_torch/csrc/distance_topk.cu",
+         "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
+         "launches": sum(v["launches"]["distance_topk"] for v in res["recsys"].values()),
+         "max_abs_err": max(res["split_err"], res["topk_err"]), "ms": sp["ms"], "plain_ms": sp["plain_ms"],
+         "bound_ms": sp["bound_ms"], "bound_by": sp["bound_by"], "library_ms": sp["library_ms"],
+         **{a: sp[a] for a in four}, "shape": "B=1 N=1000000 d=32 f32 ip k=100 (candidate_scores, bst)",
+         "by_width": {d: {a: v[a] for a in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                                             "stream_ms", "bound_ms", "kernels_per_call", "blocks")}
+                      for d, v in res["split"].items()},
+         "recsys_launches": {a: v["launches"]["distance_topk"] for a, v in res["recsys"].items()},
+         "b128": {**res["topk_merge"], "shape": "B=128 N=65536 D=1152 f32 l2 k=100"}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",

@@ -4,7 +4,7 @@
 // memory (stages below stride 64 in registers), the "last block of a
 // group" handshake, a warp sum, the per-row
 // scoring loops (global memory, and rows staged in shared memory), and the
-// mbarrier / bulk-copy primitives of the grouped kernel's ring.
+// mbarrier / bulk-copy primitives of the kernels' rings.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,28 +55,6 @@ __device__ __forceinline__ void key_out(unsigned long long key, float* d, int* i
   }
 }
 
-// Ascending bitonic sort of n (a power of two) keys in shared memory by
-// the whole block, every stage through shared memory (the k < N path of
-// distance_topk.cu; block_sort below is the faster one for the others).
-// Callers synchronise before; it synchronises after.
-__device__ void bitonic_sort(unsigned long long* a, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
-        int i = 2 * stride * (t / stride) + (t % stride);
-        int j = i + stride;
-        bool asc = (i & size) == 0;
-        unsigned long long x = a[i], y = a[j];
-        if ((x > y) == asc) {
-          a[i] = y;
-          a[j] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -93,85 +71,18 @@ __device__ __forceinline__ float dec(__half c, float, float) { return __half2flo
 __device__ __forceinline__ float dec(__nv_bfloat16 c, float, float) { return __bfloat162float(c); }
 __device__ __forceinline__ float dec(float c, float, float) { return c; }
 
-// Vector loads: 4 bytes a lane for the 1- and 2-byte types, 16 for float32.
-template <typename T> struct Vec;
-template <> struct Vec<int8_t> {
-  using V = char4;
-  static constexpr int W = 4;
-};
-template <> struct Vec<__half> {
-  using V = __half2;
-  static constexpr int W = 2;
-};
-template <> struct Vec<__nv_bfloat16> {
-  using V = __nv_bfloat162;
-  static constexpr int W = 2;
-};
-template <> struct Vec<float> {
-  using V = float4;
-  static constexpr int W = 4;
-};
-
-__device__ __forceinline__ void dec_vec(char4 v, float s, float o, float* out) {
-  out[0] = dec(static_cast<int8_t>(v.x), s, o);
-  out[1] = dec(static_cast<int8_t>(v.y), s, o);
-  out[2] = dec(static_cast<int8_t>(v.z), s, o);
-  out[3] = dec(static_cast<int8_t>(v.w), s, o);
-}
-__device__ __forceinline__ void dec_vec(__half2 v, float, float, float* out) {
-  float2 f = __half22float2(v);
-  out[0] = f.x;
-  out[1] = f.y;
-}
-__device__ __forceinline__ void dec_vec(__nv_bfloat162 v, float, float, float* out) {
-  float2 f = __bfloat1622float2(v);
-  out[0] = f.x;
-  out[1] = f.y;
-}
-__device__ __forceinline__ void dec_vec(float4 v, float, float, float* out) {
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
 // One warp scores one row: dot = <q, c> and cc = <c, c>, float32
 // accumulation, every lane gets both sums.  qs is the query in shared
-// memory (float32, 16-byte aligned).  VEC: D is a multiple of the vector
-// width and the rows are aligned to it.
-template <typename T, bool VEC>
+// memory (float32).  Any width and alignment: an element a lane-step (the
+// rows that allow 16-byte loads take rows_dot_wide or rows_dot_smem).
+template <typename T>
 __device__ __forceinline__ void row_dot(const T* __restrict__ row, const float* qs, int D,
                                         float s, float o, int lane, float* dot, float* cc) {
   float a = 0.f, b = 0.f;
-  if (VEC) {
-    constexpr int W = Vec<T>::W;
-    using V = typename Vec<T>::V;
-    const V* rv = reinterpret_cast<const V*>(row);
-    const int nv = D / W;
-#pragma unroll 4
-    for (int v = lane; v < nv; v += 32) {
-      float c[W], x[W];
-      dec_vec(__ldg(rv + v), s, o, c);
-      // the query slice as one 8- or 16-byte shared load (no bank conflicts)
-      if constexpr (W == 4) {
-        float4 t = reinterpret_cast<const float4*>(qs)[v];
-        x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-      } else {
-        float2 t = reinterpret_cast<const float2*>(qs)[v];
-        x[0] = t.x; x[1] = t.y;
-      }
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        a = fmaf(x[w], c[w], a);
-        b = fmaf(c[w], c[w], b);
-      }
-    }
-  } else {
-    for (int d = lane; d < D; d += 32) {
-      float c = dec(row[d], s, o);
-      a = fmaf(qs[d], c, a);
-      b = fmaf(c, c, b);
-    }
+  for (int d = lane; d < D; d += 32) {
+    float c = dec(row[d], s, o);
+    a = fmaf(qs[d], c, a);
+    b = fmaf(c, c, b);
   }
   *dot = warp_sum(a);
   *cc = warp_sum(b);
@@ -551,7 +462,7 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_
 // library loaded into the process (a GNU unique symbol), so a second build
 // of the same source would find its kernels marked as opted in.
 namespace {
-int smem_allowed[16][16];
+int smem_allowed[32][16];
 
 inline cudaError_t allow_smem(int slot, const void* kern, size_t smem) {
   int dev = 0;

@@ -213,7 +213,7 @@ grouped_tile_kernel(GArgs a) {
       const CodeT* rows_g = reinterpret_cast<const CodeT*>(src);
       for (int t = warp; t < rows; t += kWarps) {
         float dot, cc;
-        row_dot<CodeT, false>(rows_g + static_cast<size_t>(t) * D, qs, D, sc, of, lane, &dot, &cc);
+        row_dot<CodeT>(rows_g + static_cast<size_t>(t) * D, qs, D, sc, of, lane, &dot, &cc);
         if (lane == 0) keys[t] = make_key(metric_of(a.metric, qq, dot, cc), r0 + t);
       }
     }

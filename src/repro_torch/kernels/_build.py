@@ -33,7 +33,7 @@ _F = ctypes.c_float
 # C signatures of the exported functions (all return a cudaError_t as int)
 SIGNATURES = {
     "distance_topk": {
-        "distance_topk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "distance_topk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "distance_topk_smem_optin": [],
     },
     "grouped_distance_topk": {

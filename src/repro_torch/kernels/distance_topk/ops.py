@@ -10,9 +10,12 @@ CUDA launch.
 
 Both kernels finish their top-k in the last block of a group of blocks
 (found by an atomic counter that block resets), through keys in a scratch
-buffer.  The scratch and the counters are allocated once per device and
-stream and grow when a call needs more (``workspace``); the shared-memory
-opt-in is read once per device.
+buffer: ``distance_topk`` in both of its paths (full selection for k >= N,
+the leaf scorer's; the split path for k < N, the recsys retrieval
+tower's), the grouped kernel when a leaf spans several tiles.  The
+scratch and the counters are allocated once per device and stream and
+grow when a call needs more (``workspace``); the shared-memory opt-in is
+read once per device.
 """
 from __future__ import annotations
 
@@ -105,6 +108,54 @@ def topk_full_plan(N: int, D: int, optin: int) -> int:
     return nblk
 
 
+# The k < N path's shapes (kNarrowD, kNarrowRows, kWideRows, kRingBytes in
+# csrc/distance_topk.cu, which rejects a block count that is not this
+# plan's): rows up to SPLIT_NARROW_D wide stream through a ring of 2-4
+# stages of SPLIT_NARROW_ROWS rows, a thread a row; wider rows go a warp two
+# rows at a time, SPLIT_WIDE_ROWS rows between barriers.  A call aims at
+# SPLIT_TARGET_BLOCKS blocks in all (eight an SM of a 132-SM card) and at
+# most SPLIT_MAX_ROW_BLOCKS a query row (two an SM at B = 1).
+SPLIT_NARROW_D = 64
+SPLIT_NARROW_ROWS = 256
+SPLIT_WIDE_ROWS = 16
+SPLIT_RING_BYTES = 96 * 1024
+SPLIT_TARGET_BLOCKS = 1056
+SPLIT_MAX_ROW_BLOCKS = 264
+
+
+def _split_smem(D: int, k: int, itemsize: int) -> int:
+    """Shared memory of one block of the k < N path: the query, the running
+    top-pow2(k) and the filter's buffer of max(2 * pow2(k), 1024) keys, and
+    for narrow rows the ring."""
+    K2 = _pow2(k)
+    smem = 128 + _align16(D * 4) + _align16((K2 + max(2 * K2, 4 * SPLIT_NARROW_ROWS)) * 8)
+    if D <= SPLIT_NARROW_D:
+        sb = SPLIT_NARROW_ROWS * D * itemsize
+        smem += min(4, max(2, SPLIT_RING_BYTES // sb)) * sb
+    return smem
+
+
+def topk_split_plan(B: int, N: int, D: int, k: int, optin: int, itemsize: int = 4) -> int:
+    """The k < N path's blocks per query row: contiguous chunks of a
+    multiple of the stage's rows, about SPLIT_TARGET_BLOCKS blocks in all,
+    at most SPLIT_MAX_ROW_BLOCKS a row and none of fewer than max(stage
+    rows, 2 * pow2(k)) rows.  Raises when a block's shared memory
+    (``_split_smem``) does not fit in ``optin`` bytes."""
+    K2 = _pow2(k)
+    R = SPLIT_NARROW_ROWS if D <= SPLIT_NARROW_D else SPLIT_WIDE_ROWS
+    want = min(SPLIT_MAX_ROW_BLOCKS, max(1, -(-SPLIT_TARGET_BLOCKS // max(B, 1))))
+    nblk = max(1, min(want, -(-N // max(R, 2 * K2))))
+    rpb = -(-(-(-N // nblk)) // R) * R
+    nblk = -(-N // rpb)
+    smem = _split_smem(D, k, itemsize)
+    if smem > optin:
+        raise ValueError(
+            f"distance_topk k={k} < N={N}: a block's query, top-k keys and ring take {smem} B of shared "
+            f"memory at D={D}, more than the {optin} B a block may have"
+        )
+    return nblk
+
+
 def grouped_plan(N: int, D: int, k: int, itemsize: int, optin: int) -> tuple[int, int]:
     """The grouped kernel's (tiles per group, keys kept per tile P =
     min(pow2(k), GROUPED_TILE)).  Raises when a block's query, tile keys and
@@ -176,9 +227,14 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
     """q [B, D], c [N, D] (float32 | bfloat16 | float16 tensors, numpy
     taken as CPU) -> (dists [B, k] float32, idx [B, k] int32) tensors on
     the inputs' device, ascending, ties to the lower index; entries with no
-    candidate are (inf, -1).  k >= N takes the kernel's full-selection path
-    (one launch: blocks of rows sort their keys, the last block of a query
-    row finishes the sort of them all)."""
+    candidate are (inf, -1).  One launch either way.  k >= N takes the
+    full-selection path (the leaf scorer's: blocks of rows sort their keys,
+    the last block of a query row finishes the sort of them all).  k < N
+    takes the split path (the recsys tower's ``candidate_scores``, B = 1
+    against 1M candidates at d = 16-32): ``topk_split_plan`` blocks a query
+    row each stream a chunk of the candidates, keep a running top-k and let
+    only keys below its k-th through, and the last block of the row runs
+    the same filter over their lists, a column at a time."""
     q, c = _as_tensor(q), _as_tensor(c)
     m = _metric(metric)
     if q.ndim != 2 or c.ndim != 2 or q.shape[1] != c.shape[1]:
@@ -194,21 +250,20 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
     N = c.shape[0]
     dev = q.device
     optin = _device_optin(lib, "distance_topk_smem_optin", dev)
-    nblk = 0
-    if k >= N:  # full selection: one launch, the last block of a row sorts
+    if k >= N:  # full selection: the last block of a row sorts its blocks' keys
         nblk = topk_full_plan(N, D, optin)
-    else:  # running top-k: query + 2 * max(pow2(k), 256) keys
-        keys = 2 * max(_pow2(k), 256)
-        if _align16(D * 4) + keys * 8 > optin:
-            raise ValueError(f"distance_topk k={k} needs {keys} shared-memory keys, more than fit at D={D}")
+        key_bytes = B * nblk * FULL_ROWS * 8
+    else:  # split: the last block of a row reads its blocks' lists of pow2(k) keys
+        nblk = topk_split_plan(B, N, D, k, optin, q.element_size())
+        key_bytes = B * nblk * _pow2(k) * 8
     q, c = q.contiguous(), c.contiguous()
     out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    keys, counters = workspace(dev, B * nblk * FULL_ROWS * 8, B)
+    keys, counters = workspace(dev, key_bytes, B)
     with _on(dev):
         err = lib.distance_topk_launch(
             q.data_ptr(), c.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), keys.data_ptr(),
-            counters.data_ptr(), B, N, D, int(k), m, DTYPE_CODE[q.dtype],
+            counters.data_ptr(), B, N, D, int(k), m, DTYPE_CODE[q.dtype], nblk,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "distance_topk")

@@ -83,12 +83,18 @@ def param_count(spec_tree) -> int:
 
 
 def params_from_jax(tree, cfg, *, device="cuda"):
-    """The reference's LM parameter tree (``repro.models.base.init_params``
-    of ``repro.models.transformer.param_specs``; arrays that numpy can read)
-    -> the port's: the stacked ``[L, ...]`` layer arrays become a list of
-    ``cfg.n_layers`` per-layer dicts, and every weight is cast once to
-    ``cfg.dtype`` (what the reference's per-use casts give)."""
+    """A parameter tree the reference made (``repro.models.base.init_params``
+    of a ``param_specs``; arrays that numpy can read) -> the port's, by the
+    config's type.  A recsys tree (``RecSysConfig``) is one flat dict: every
+    array becomes a float32 tensor on ``device``.  An LM tree: the stacked
+    ``[L, ...]`` layer arrays become a list of ``cfg.n_layers`` per-layer
+    dicts, and every weight is cast once to ``cfg.dtype`` (what the
+    reference's per-use casts give)."""
+    from .recsys import RecSysConfig
+
     dev = resolve_device(device)
+    if isinstance(cfg, RecSysConfig):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev) for k, v in tree.items()}
 
     def conv(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)

@@ -1,8 +1,11 @@
 """eCP retrieval attention for long-context decode: only its configuration so far.
 
-``LMConfig`` carries a ``RetrievalAttnConfig``.  The clustered KV cache and
-``retrieval_decode_attention`` (``repro.models.retrieval_attention``) wait
-for ROADMAP Queue 1 #10.
+``LMConfig`` carries a ``RetrievalAttnConfig``.  What is left of ROADMAP
+Queue 1 #10 is this module: ``ClusteredKVCache``, ``init_clustered_cache``,
+``clustered_cache_update`` and ``retrieval_decode_attention``
+(``repro.models.retrieval_attention``), and
+``transformer.retrieval_decode_step``; #10's other half, the recsys models
+(``models/recsys.py``), is ported.
 """
 from __future__ import annotations
 

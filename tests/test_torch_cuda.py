@@ -82,3 +82,34 @@ def test_threads_sharing_the_default_stream_match_the_calls_run_alone(card):
         np.testing.assert_array_equal(idx.cpu().numpy(), alone[i][1].cpu().numpy(), err_msg=f"call {i} rep {rep}")
     ws = next(iter(ops.workspaces.values()))
     assert len(ops.workspaces) == 1 and int(ws[1].abs().sum()) == 0  # one workspace, counters at rest
+
+
+def test_candidate_scores_on_the_card_is_one_launch_of_the_split_path(card):
+    """The recsys tower's scoring at B = 1 on the card: one launch of the
+    k < N path, the plain version's top 100 (scores within 1e-4 * max(1,
+    |s|), ids equal but among such near-equal scores), the tail block's
+    last row found first, every finish counter back at 0."""
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    from repro_torch.models import recsys
+
+    g = torch.Generator().manual_seed(5)
+    for N, d in ((200_000, 18), (200_003, 32), (1000, 16)):
+        q, cand = torch.randn(1, d, generator=g), torch.randn(N, d, generator=g)
+        cand[-1] = q[0] * 50
+        q, cand = q.to(card), cand.to(card)
+        ops.reset_launches()
+        s, i = recsys.candidate_scores(q, cand, 100)
+        assert ops.launches["distance_topk"] == 1
+        assert s.shape == i.shape == (1, 100) and i.dtype == torch.int32 and s.device == card
+        d0, i0 = distance_topk_ref(q, cand, 100, "ip")
+        s, i, s0, i0 = s.cpu().numpy(), i.cpu().numpy(), -d0.cpu().numpy(), i0.cpu().numpy()
+        tol = 1e-4 * np.maximum(1.0, np.abs(s0))
+        assert (np.abs(s - s0) <= tol).all()
+        for j in np.flatnonzero(i[0] != i0[0]):
+            hit = np.flatnonzero(i0[0] == i[0, j])
+            ref = s0[0, hit[0]] if len(hit) else s0[0, -1]
+            assert abs(s[0, j] - ref) <= 2e-4 * max(1.0, abs(ref)), (N, d, j)
+        assert int(i[0, 0]) == N - 1
+    torch.cuda.synchronize()
+    for _, counters in ops.workspaces.values():
+        assert int(torch.count_nonzero(counters)) == 0

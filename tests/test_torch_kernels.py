@@ -43,6 +43,8 @@ def _close(a, b, tol=1e-4):
         (130, 1000, 128, 16, 128, 128),   # non-divisible B and N
         (1, 64, 32, 64, 8, 64),           # k == N: the full-selection path
         (16, 512, 256, 32, 64, 256),
+        (1, 3000, 18, 16, 8, 256),        # k < N at B = 1, the recsys width d = 18
+        (1, 2000, 18, 100, 8, 128),       # ... at the retrieval tower's k
     ],
 )
 def test_distance_topk_matches_jax(metric, B, N, D, k, bq, bn):
@@ -249,6 +251,41 @@ def test_full_selection_limits_raise():
 
 
 @pytest.mark.parametrize(
+    "B,N,D,k,nblk",
+    [
+        (1, 1_000_000, 32, 100, 261),     # candidate_scores at bst's width: 3840 rows a block
+        (1, 1_000_000, 18, 100, 261),     # dien
+        (1, 1_000_000, 16, 100, 261),     # autoint, dcn-v2
+        (1, 1_000_003, 18, 100, 261),     # a tail tile off every stage size
+        (4, 1_000_000, 32, 100, 261),     # at most 264 a row
+        (128, 65536, 1152, 100, 9),       # ~1056 blocks in all; wide rows, 16-row steps
+        (1, 1000, 18, 100, 4),            # one 256-row stage a block
+        (1, 1000, 18, 999, 1),            # no block of fewer than 2 * pow2(k) rows
+        (1, 1000, 18, 1, 4),
+        (2048, 5000, 64, 10, 1),          # many rows of queries: one block each
+    ],
+)
+def test_split_plan(B, N, D, k, nblk):
+    """The k < N path: blocks a query row, each a contiguous chunk of a
+    whole number of stages; every chunk holds rows."""
+    assert ops.topk_split_plan(B, N, D, k, OPTIN) == nblk
+    R = ops.SPLIT_NARROW_ROWS if D <= ops.SPLIT_NARROW_D else ops.SPLIT_WIDE_ROWS
+    rpb = -(-(-(-N // nblk)) // R) * R
+    assert rpb % R == 0 and (nblk - 1) * rpb < N <= nblk * rpb
+
+
+def test_split_plan_limits_raise():
+    with pytest.raises(ValueError, match=r"k=20000 < N=1000000: .* take 884992 B of shared memory at D=32, "
+                                         r"more than the 232448 B a block may have"):
+        ops.topk_split_plan(1, 1_000_000, 32, 20000, OPTIN)
+    with pytest.raises(ValueError, match=r"take \d+ B of shared memory at D=60000"):
+        ops.topk_split_plan(1, 100_000, 60000, 10, OPTIN)
+    assert ops.topk_split_plan(1, 1_000_000, 32, 4096, OPTIN) == 123  # a large k fits, in fewer blocks
+    # float16 rows halve the ring's stages' bytes
+    assert ops._split_smem(64, 100, 2) < ops._split_smem(64, 100, 4) <= OPTIN
+
+
+@pytest.mark.parametrize(
     "N,k,itemsize,plan",
     [
         (455, 128, 1, (2, 128)),
@@ -276,5 +313,5 @@ def test_sources_and_signatures_are_the_csrc_files():
     stems = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == stems == set(_build.SIGNATURES)
     # one pointer each for the scratch keys and the counters (and the grouped kernel's tile)
-    assert len(_build.SIGNATURES["distance_topk"]["distance_topk_launch"]) == 13
+    assert len(_build.SIGNATURES["distance_topk"]["distance_topk_launch"]) == 14  # and the blocks a row
     assert len(_build.SIGNATURES["grouped_distance_topk"]["grouped_distance_topk_launch"]) == 17
