@@ -125,8 +125,9 @@ Phases, none of whose failures is caught:
    tests/test_kernels.py, every head width and logits of 30, in float32
    and bf16; batch rows with kv_len = 0; the wgmma kernel's edges: Sq and
    kv_len off its 128-row tiles, one query over 32768 keys, v past kv_len
-   set to 1e4; the prefill's heads in bf16 at S=4096, and at S=32768 three
-   blocks of rows of the prefill's own call) and times the wgmma kernel
+   set to 1e4; the prefill's heads in bf16 at S=4096, llama4-scout's (40
+   over 8, a GQA group of 5) at S=4096, and at S=32768 three blocks of
+   rows of the prefill's own call) and times the wgmma kernel
    against the mma.sync kernel it replaced, in turns, at S=4096 and
    S=32768.  Then plants each of FAULTS in a copy of the wgmma kernel's
    source (built alongside the real sources, in a temporary directory)
@@ -139,6 +140,24 @@ Phases, none of whose failures is caught:
    through the chunked plain-torch attention; asserts that the two agree at
    every step (relative L2 error of the logits, and the argmax).  The same
    run with each planted fault prints how far its logits move.
+7. long500k: eCP retrieval attention (``retrieval_decode_step``) for
+   phi4-mini at full width and depth over ``long_500k``'s 524288-token
+   clustered cache (1024 clusters of 512, top 32; 64 GiB of k and v),
+   filled from the seeded generator up to 300 tokens before its end, then
+   16 steps in place.  Asserts finite logits, each token's k and v at its
+   slot, the current centroid the mean of its keys, retrieval over every
+   cluster of a 32768-token sub-cache equal to chunked attention, and
+   retrieval at top 32 over a whole layer equal to exact attention masked
+   to the same clusters; prints ms a step beside the bytes a step must
+   read and the exact decode's.  No kernel launches.
+8. moe: llama4-scout (12 of 48 layers, 16 experts) and llama4-maverick (2
+   of 48 layers: one dense + MoE block, 128 experts) at full width, random
+   weights: prefill of 32768 tokens with flash (one wgmma launch a layer)
+   and decode steps; scout again through chunked attention, its logits
+   held as phi4-mini's, with the share of tokens the two runs route to
+   other experts by layer; ``moe_ffn`` on one MoE layer of each at 32768
+   tokens (as drawn, and skewed past capacity) held against an
+   independent reading of its dispatch.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Distances agree within 1e-4 relative:
@@ -236,6 +255,42 @@ LOGIT_REL_TOL = 3e-2
 # with the causal mask off by one, five to ten flips, up to 0.38 apart.
 ARGMAX_GAP = 0.1
 N_DECODE = 16
+# long500k: eCP retrieval attention at phi4-mini's full width and depth over
+# long_500k's 524288 tokens (k and v 64 GiB in bf16, centroids 0.125 GiB in
+# float32).  The steps start LONG_TAIL tokens before the cache's end, so the
+# last cluster is partial and no step crosses a cluster boundary.  Retrieval
+# and exact attention are compared in float32 within the CPU tests' 2e-4
+# (|a - b| <= RETR_TOL * (1 + |b|)) on a sub-cache of LONG_SUB_CLUSTERS
+# clusters and, at top_b, over a whole layer.
+LONG_STEPS = 16
+LONG_TAIL = 300
+LONG_SUB_CLUSTERS = 64
+RETR_TOL = 2e-4
+CENTROID_RTOL = 1e-5
+# moe: llama4 at full width, depth cut to what one card holds beside a
+# 32768-token prefill: scout 48 -> 12 layers (54.0 GB of weights), maverick
+# 48 -> 2 (one dense + MoE block, 36.9 GB); maverick decodes
+# MAVERICK_DECODE steps.  moe_ffn's kept tokens, MOE_SAMPLES of them, are
+# held one at a time to gate * swiglu(x; W_e) by the relative L2 error
+# within MOE_TOKEN_TOL, the bf16 tolerance of tests/test_torch_lm.py.
+SCOUT_LAYERS = 12
+# Scout's flash and chunked logits are held as phi4-mini's (LOGIT_REL_TOL,
+# ARGMAX_GAP) at every step.  Routing is a discrete choice that the two
+# attention paths' rounding can tip (measured on the H100 with free
+# routing: one decode token of 16 took another expert in one layer and moved
+# that step's logits 3.7e-2, against 1.0-1.1e-2 at the others), so the
+# chunked run dispatches each token to the expert the flash run chose and
+# the logits measure attention alone; where its own router would have
+# chosen another expert is reported beside them, by layer and by step.
+# scout's chunked prefill in blocks of 512 queries (the config's attn_chunk
+# is 1024): a block's [40, 1024, 32784] float32 scores and their softmax
+# temporaries (~15 GiB) do not fit beside the 12 layers' 50.3 GiB of
+# weights; each block is exact and independent, so the logits are the same
+SCOUT_CHUNK = 512
+MAVERICK_LAYERS = 2
+MAVERICK_DECODE = 4
+MOE_SAMPLES = 64
+MOE_TOKEN_TOL = 2e-2
 # the read path: a prefetch byte cap that admits nodes of the 200k blob
 # (its slot, the largest leaf's block, is 12.4 MB; the store's default cap
 # is 4 MiB), the seconds the legacy engine may take, and the shared budget
@@ -359,7 +414,7 @@ def topk_bound_ms(B, N, k, dtype="float32", itemsize=4, d=D):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def device_time(fn, iters: int = 20, tries: int = 8, *, whole: bool = True) -> tuple[float, float | None]:
+def device_time(fn, iters: int = 20, tries: int = 8, *, whole: bool = True) -> tuple[float | None, float | None]:
     """(ms on the card per call, summed over the call's kernels; kernels per
     call as the profiler saw them, or None), from torch.profiler with CUDA
     activity around ``iters`` calls.  Copies and memsets are not kernels
@@ -370,9 +425,13 @@ def device_time(fn, iters: int = 20, tries: int = 8, *, whole: bool = True) -> t
     is taken again, up to ``tries`` times; if every trace came short, the
     time is the mean of the records kept and the count is None: it was not
     measured (``captured_kernels`` counts a call's kernels without the
-    profiler).  A library yardstick (``whole=False``) may launch a varying
-    number of kernels a call (seen on the H100: 538 for 20 calls of decode
-    + bmm + topk, in every trace), so any trace with kernels counts for it."""
+    profiler).  If no trace kept a single record (seen on the H100 for
+    SDPA's one kernel at S=32768, in all 8 traces of one run), both are
+    None: the profiler's reading is not measured, and the CUDA-event times
+    beside it stand.  A library yardstick (``whole=False``) may launch a
+    varying number of kernels a call (seen on the H100: 538 for 20 calls of
+    decode + bmm + topk, in every trace), so any trace with kernels counts
+    for it."""
     import torch
 
     fn()
@@ -384,7 +443,10 @@ def device_time(fn, iters: int = 20, tries: int = 8, *, whole: bool = True) -> t
         if ks and (len(ks) % iters == 0 or not whole):
             return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters, len(ks) / iters
         best = max(best, ks, key=len)
-    assert 0 < len(best) < iters, f"torch.profiler saw {counts} kernels in {tries} traces of {iters} calls"
+    if not best:
+        log(f"torch.profiler kept no kernel record in {tries} traces of {iters} calls: device time not measured")
+        return None, None
+    assert len(best) < iters, f"torch.profiler saw {counts} kernels in {tries} traces of {iters} calls"
     log(f"torch.profiler kept {counts} of {iters} one-kernel calls' records; the mean of the {len(best)} kept")
     return sum(e.time_range.elapsed_us() for e in best) / 1e3 / len(best), None
 
@@ -2100,6 +2162,12 @@ def phase_flash(res: dict, fault_libs: dict) -> None:
     t4["mma_sync_tflops_counted"] = tflops(n4, t4["mma_sync_ms"])
     log(f"[flash] S=4096 bf16 causal: {json.dumps(t4)}")
     del o4, p4, qc
+    # llama4-scout's heads: a GQA group of 5 (phi4-mini's is 3)
+    qs, ks, vs = flash_inputs(14, 1, 40, 8, 4096, 4096, d, torch.bfloat16)
+    check("bf16 1x40x4096x128 (llama4-scout's heads)", *flash_pair(qs, ks, vs))
+    log(f"[flash] bf16 [1,40,4096,128] x [1,8,4096,128] causal (llama4-scout's heads) agrees (max abs err so far "
+        f"{err:.3g}, max row err {row:.3g})")
+    del qs, ks, vs
     S = 32768
     q32, k32, v32 = flash_inputs(12, 1, Hq, Hkv, S, S, d, torch.bfloat16)
     o32 = ops.flash_attention(q32, k32, v32)
@@ -2200,10 +2268,10 @@ def planted(fault):
 
 
 # ------------------------------------------------------------------ LM path
-def lm_run(params, tokens, cfg, decode_tokens=None) -> dict:
-    """prefill then N_DECODE decode steps through the user's entry points;
-    greedy next tokens unless ``decode_tokens`` are given.  Returns the
-    logits of every step (on the host) and the times."""
+def lm_run(params, tokens, cfg, decode_tokens=None, n_decode: int = N_DECODE) -> dict:
+    """prefill then ``n_decode`` decode steps through the user's entry
+    points; greedy next tokens unless ``decode_tokens`` are given.  Returns
+    the logits of every step (on the host) and the times."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import transformer as T
@@ -2227,7 +2295,7 @@ def lm_run(params, tokens, cfg, decode_tokens=None) -> dict:
     ops.reset_launches()
     try:
         t0 = time.perf_counter()
-        logits, cache = T.prefill(params, tokens, cfg, max_seq=S + N_DECODE)
+        logits, cache = T.prefill(params, tokens, cfg, max_seq=S + n_decode)
         torch.cuda.synchronize()
         out["prefill_s"] = time.perf_counter() - t0
     finally:
@@ -2238,7 +2306,7 @@ def lm_run(params, tokens, cfg, decode_tokens=None) -> dict:
     out["prefill_tok_s"] = tokens.numel() / out["prefill_s"]
     steps = [logits.cpu()]
     toks, step_ms = [], []
-    for i in range(N_DECODE):
+    for i in range(n_decode):
         nxt = (torch.argmax(logits, dim=-1) if decode_tokens is None else decode_tokens[i]).to(tokens.device)
         toks.append(nxt.cpu())
         t0 = time.perf_counter()
@@ -2318,6 +2386,405 @@ def phase_lm(res: dict, seed: int, fault_libs: dict) -> None:
         assert gap <= ARGMAX_GAP, f"step {i}: the argmax moved between logits {gap} apart"
 
 
+def mem_line() -> str:
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (f"free {free / 2**30:.3f} GiB of {total / 2**30:.3f} GiB (allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f}, reserved {torch.cuda.memory_reserved() / 2**30:.3f})")
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels.distance_topk import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    fops.reset_launches()
+    dops.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels.distance_topk import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    return {**fops.launches, **dops.launches}
+
+
+def within(what: str, o, e, rtol: float = RETR_TOL) -> float:
+    """|o - e| <= rtol * (1 + |e|) everywhere; returns the largest absolute error."""
+    import torch
+
+    assert torch.isfinite(o).all(), f"{what}: non-finite output"
+    err = (o - e).abs()
+    bad = err > rtol * (1 + e.abs())
+    assert not bad.any(), f"{what}: {int(bad.sum())} entries off, max abs err {float(err.max())}"
+    return float(err.max())
+
+
+# ---------------------------------------------------------- long_500k phase
+def fill_clustered_cache(cache, pos: int, g, chunk: int = 64) -> None:
+    """Every layer's k and v drawn from ``g``'s normals straight into the
+    cache's dtype, one layer at a time, zeros from token ``pos`` on; each
+    centroid the float32 mean of its cluster's written keys, ``chunk``
+    clusters at a time (no layer-sized float32 copy)."""
+    import torch
+
+    L, _, _, nC, cs, _ = cache.k.shape
+    cid, off = divmod(pos, cs)
+    for i in range(L):
+        for t in (cache.k[i], cache.v[i]):
+            t.normal_(generator=g)
+            t[:, :, cid, off:] = 0
+            t[:, :, cid + 1:] = 0
+        for c0 in range(0, cid, chunk):
+            c1 = min(c0 + chunk, cid)
+            cache.centroids[i, :, :, c0:c1] = cache.k[i, :, :, c0:c1].to(torch.float32).mean(3)
+        if off:
+            cache.centroids[i, :, :, cid] = cache.k[i, :, :, cid, :off].to(torch.float32).mean(2)
+    cache.pos = pos
+
+
+def masked_exact_attention(q, layer_k, layer_v, token_mask, chunk: int = 64):
+    """Exact attention of q [B, Hq, d] over the tokens of one layer's
+    clustered cache [B, Hkv, nC, cs, d] that ``token_mask`` [B, Hkv, nC, cs]
+    admits: float32 scores, one softmax over the whole layer, k and v read
+    ``chunk`` clusters at a time.  Returns [B, Hq, d] float32."""
+    import torch
+
+    B, Hq, d = q.shape
+    _, Hkv, nC, cs, _ = layer_k.shape
+    qg = (q.to(torch.float32) * (1.0 / d**0.5)).reshape(B, Hkv, Hq // Hkv, d)
+    s = torch.empty((B, Hkv, Hq // Hkv, nC, cs), device=q.device)
+    for c0 in range(0, nC, chunk):
+        s[:, :, :, c0:c0 + chunk] = torch.einsum("bhgd,bhncd->bhgnc", qg, layer_k[:, :, c0:c0 + chunk].float())
+    s.masked_fill_(~token_mask[:, :, None], -torch.inf)
+    p = torch.softmax(s.reshape(B, Hkv, Hq // Hkv, nC * cs), dim=-1).reshape(s.shape)
+    out = torch.zeros((B, Hkv, Hq // Hkv, d), device=q.device)
+    for c0 in range(0, nC, chunk):
+        out += torch.einsum("bhgnc,bhncd->bhgd", p[:, :, :, c0:c0 + chunk], layer_v[:, :, c0:c0 + chunk].float())
+    return out.reshape(B, Hq, d)
+
+
+def decode_bytes(cfg, batch: int) -> int:
+    """Weight bytes one decode step must read: every weight but the
+    embedding table, of which it reads one row a sequence."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import param_count
+
+    n = param_count(T.param_specs(cfg)) - cfg.vocab * cfg.d_model + batch * cfg.d_model
+    return n * torch.empty((), dtype=cfg.dtype).element_size()
+
+
+def phase_long500k(res: dict, seed: int) -> None:
+    """[long500k]: ``retrieval_decode_step`` of phi4-mini at full width and
+    depth over ``long_500k``'s 524288-token clustered cache, 16 steps in
+    place.  A prompt-filled cache cannot be built on one card: a flash
+    prefill of 524288 tokens needs ~25 GB of activations on top of the
+    64 GiB cache.  So the cache is filled from the seeded generator (k and v
+    normals, the centroids their clusters' means) up to 300 tokens before
+    its end.  The exact decode over 524288 keys is not run either: the
+    chunked attention's float32 copies of a layer's GQA-expanded k and v
+    (~16 GB) do not fit beside the cache; it is held against retrieval
+    attention on a sub-cache instead."""
+    import torch
+    from repro_torch.configs import lm_archs, shapes
+    from repro_torch.models import layers as NL
+    from repro_torch.models import retrieval_attention as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attention
+
+    cfg = lm_archs.get("phi4-mini-3.8b")
+    S, B = shapes.LM_SHAPES["long_500k"]["seq"], shapes.LM_SHAPES["long_500k"]["batch"]
+    cs, top_b, d, Hkv = cfg.retrieval.cluster_size, cfg.retrieval.top_clusters, cfg.d_head, cfg.n_kv_heads
+    log(f"reduced: long500k: the {S}-token clustered cache is filled with seeded normals (centroids their "
+        f"clusters' means), not by a prefill of the prompt (~25 GB of flash activations beside the 64 GiB "
+        f"cache); the exact decode over {S} keys is not run (its float32 k and v copies do not fit beside "
+        f"the cache): held on a {LONG_SUB_CLUSTERS}-cluster sub-cache instead; width, depth "
+        f"({cfg.n_layers} layers), batch {B}, cluster_size {cs} and top_clusters {top_b} as phi4-mini-3.8b's "
+        f"and long_500k's")
+    log(f"[long500k] device memory before it allocates: {mem_line()}")
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(seed + 500)
+    params = T.init_params(cfg, g)
+    cache = R.init_clustered_cache(cfg.n_layers, B, Hkv, S, cs, d, cfg.dtype)
+    t0 = time.perf_counter()
+    fill_clustered_cache(cache, S - LONG_TAIL, g)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    nC = cache.k.shape[3]
+    log(f"[long500k] cache k, v {tuple(cache.k.shape)} {cfg.dtype}: {2 * cache.k.nbytes / 2**30:.3f} GiB, "
+        f"centroids {cache.centroids.nbytes / 2**30:.3f} GiB; filled in {fill_s:.3f} s to pos {cache.pos}; "
+        f"{mem_line()}")
+    tokens = torch.randint(0, cfg.vocab, (LONG_STEPS, B), generator=g, device="cuda")
+    lp0 = params["layers"][0]
+    step_ms = []
+    reset_all_launches()
+    for i in range(LONG_STEPS):
+        pos = cache.pos
+        cid, off = divmod(pos, cs)
+        before = (cache.k[:, :, :, cid, off].clone(), cache.v[:, :, :, cid, off].clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.retrieval_decode_step(params, cache, tokens[i], cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        assert logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()), f"step {i}: non-finite logits"
+        assert cache.pos == pos + 1, (cache.pos, pos)
+        # the token's k and v land at (pos // cs, pos % cs) of every layer, and nowhere after it ...
+        for kv, b in zip((cache.k, cache.v), before):
+            slot = kv[:, :, :, cid, off]
+            assert bool((b == 0).all()) and bool((slot != 0).any(-1).all()), f"step {i}: slot {cid, off}"
+            assert bool((kv[:, :, :, cid, off + 1:] == 0).all()), f"step {i}: written past slot {cid, off}"
+        del kv, slot, before
+        # ... and layer 0's are the token's own projections
+        h = NL.rms_norm(params["embed"][tokens[i]][:, None].to(cfg.dtype), lp0["attn_norm"])
+        k0 = NL.rope((h @ lp0["wk"]).reshape(B, 1, Hkv, d), torch.full((B, 1), pos, device="cuda"), cfg.rope_theta)
+        v0 = (h @ lp0["wv"]).reshape(B, Hkv, d)
+        assert torch.equal(cache.k[0, :, :, cid, off], k0[:, 0]) and torch.equal(cache.v[0, :, :, cid, off], v0), i
+    launches = all_launches()
+    assert not any(launches.values()), f"retrieval decode launched a kernel: {launches}"
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under the profiler: the card's kernel time in a step against the host's clock
+    nxt, box = torch.randint(0, cfg.vocab, (B,), generator=g, device="cuda"), {}
+    kernels = traced_kernels(lambda: box.update(out=T.retrieval_decode_step(params, cache, nxt, cfg)), 1)
+    logits, cache = box.pop("out")
+    assert bool(torch.isfinite(logits).all()), "the traced step's logits are not finite"
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # a trace that kept no record (the profiler drops some) measured nothing
+    traced = {"kernels": len(kernels), "device_ms": sum(t for t, _ in by_name.values()) if kernels else None,
+              "top_kernels_ms_count": [[name[:80], t, n] for name, (t, n) in top]}
+    pos = cache.pos
+    cid, n = divmod(pos, cs)
+
+    # the current cluster's centroid is the float32 mean of its keys, in every layer
+    mean = cache.k[:, :, :, cid, :n].to(torch.float32).mean(3)
+    cent_rel = float(((cache.centroids[:, :, :, cid] - mean).norm(dim=-1) / mean.norm(dim=-1)).max())
+    assert cent_rel <= CENTROID_RTOL, f"the current cluster's centroid is {cent_rel} off its keys' mean"
+
+    # top_b past the complete clusters of a sub-cache (layer 0's first clusters) is exact attention
+    q = torch.randn((B, cfg.n_heads, d), generator=g, device="cuda")
+    sub_pos = LONG_SUB_CLUSTERS * cs - LONG_TAIL
+    sk = cache.k[0, :, :, :LONG_SUB_CLUSTERS].to(torch.float32)
+    sv = cache.v[0, :, :, :LONG_SUB_CLUSTERS].to(torch.float32)
+    o = R.retrieval_decode_attention(q, sk, sv, cache.centroids[0, :, :, :LONG_SUB_CLUSTERS], sub_pos, cs=cs,
+                                     top_b=LONG_SUB_CLUSTERS)
+    flat = lambda t: t.reshape(B, Hkv, LONG_SUB_CLUSTERS * cs, d)
+    e = attention(q[:, :, None], flat(sk), flat(sv), causal=True,
+                  kv_lens=torch.full((B,), sub_pos, dtype=torch.int32, device="cuda"), impl="chunked")[:, :, 0]
+    sub_err = within(f"retrieval over all {LONG_SUB_CLUSTERS} clusters vs chunked attention", o, e)
+    del sk, sv, o, e
+
+    # at top_b over the whole layer: exact attention masked to the top-b complete clusters, chosen by a
+    # separate topk of the centroid scores, and the current cluster
+    o = R.retrieval_decode_attention(q, cache.k[0], cache.v[0], cache.centroids[0], pos, cs=cs, top_b=top_b)
+    qg = (q * (1.0 / d**0.5)).reshape(B, Hkv, cfg.n_heads // Hkv, d)
+    scores = torch.einsum("bhgd,bhnd->bhgn", qg, cache.centroids[0]).mean(2)
+    scores[..., (pos - 1) // cs:] = -torch.inf
+    chosen = torch.zeros((B, Hkv, nC), dtype=torch.bool, device="cuda")
+    chosen.scatter_(-1, torch.topk(scores, top_b, dim=-1).indices, True)
+    chosen[..., (pos - 1) // cs] = True
+    tmask = chosen[..., None] & (torch.arange(nC * cs, device="cuda").reshape(nC, cs) < pos)
+    e = masked_exact_attention(q, cache.k[0], cache.v[0], tmask)
+    top_err = within(f"retrieval at top_b={top_b} vs exact attention masked to the same clusters", o, e)
+    del o, e, tmask
+
+    w = decode_bytes(cfg, B)
+    kv = 2 * cfg.n_layers * B * Hkv * (top_b + 1) * cs * d * cache.k.element_size()
+    step_bytes = w + cache.centroids.nbytes + kv
+    exact_bytes = w + 2 * cfg.n_layers * B * Hkv * pos * d * cache.k.element_size()
+    out = {"layers": cfg.n_layers, "pos_first_last": [S - LONG_TAIL, pos], "fill_s": fill_s,
+           "step_ms": float(np.mean(step_ms)), "step_ms_first_last": [step_ms[0], step_ms[-1]],
+           "step_ms_all": step_ms, "traced_step": traced, "peak_gib": peak / 2**30, "launches": launches,
+           "step_bytes": {"weights": w, "centroids": cache.centroids.nbytes, "kv_33_clusters": kv, "all": step_bytes},
+           "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "exact_decode_bytes": exact_bytes, "exact_bound_ms": exact_bytes / HBM_BYTES_PER_S * 1e3,
+           "token_scores_a_head": nC + (top_b + 1) * cs, "exact_token_scores_a_head": pos,
+           "centroid_rel_err": cent_rel, "sub_cache_err": sub_err, "top_b_err": top_err}
+    log(f"[long500k] {cfg.name} at {cfg.n_layers} layers, {LONG_STEPS} retrieval_decode_step over pos "
+        f"{S - LONG_TAIL}..{S - LONG_TAIL + LONG_STEPS - 1} (and one traced, at {pos - 1}): {json.dumps(out)}")
+    log(f"[long500k] checks: logits finite at every step; each token's k and v at (pos // {cs}, pos % {cs}) in every "
+        f"layer (layer 0's bit for bit); the current centroid within {cent_rel:.3g} of its keys' mean (limit "
+        f"{CENTROID_RTOL}); top_b={LONG_SUB_CLUSTERS} over a {LONG_SUB_CLUSTERS * cs}-token sub-cache equals chunked "
+        f"attention (max abs err {sub_err:.3g}); top_b={top_b} over the layer equals exact attention masked to the "
+        f"same clusters (max abs err {top_err:.3g}); limits {RETR_TOL} (1 + |x|)")
+    res["long500k"] = out
+    del params, cache, logits, tokens, q, mean, h, k0, v0
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- moe phase
+@contextlib.contextmanager
+def routing_recorded(calls: list, replay: list | None = None):
+    """Each ``moe_ffn`` call of the model appends the experts its own router
+    chose to ``calls`` (the tensor ``route`` made: no work on the card is
+    added, so a run's times stand).  With ``replay``, another run's
+    ``calls``, the i-th call dispatches to ``replay[i]``'s experts instead,
+    each token gated by its own router's probability of that expert."""
+    from repro_torch.models import moe as M
+
+    real = M.route
+
+    def recording(x, router_w):
+        probs, gate, eidx = real(x, router_w)
+        calls.append(eidx)
+        if replay is None:
+            return probs, gate, eidx
+        e = replay[len(calls) - 1]
+        return probs, probs.gather(1, e[:, None])[:, 0], e
+
+    M.route = recording
+    try:
+        yield
+    finally:
+        M.route = real
+
+
+def moe_check(what: str, x, lp, mcfg, g) -> dict:
+    """``moe_ffn`` on x [T, D] through one MoE layer's weights, held against
+    an independent reading of its dispatch: each expert keeps its first C
+    tokens in token order, the others come back exactly 0 (per expert,
+    max(0, n_e - C) of them), and MOE_SAMPLES kept tokens, one at a time,
+    equal gate * swiglu(x_t; W_e)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as M
+
+    T_, E = x.shape[0], mcfg.n_experts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = M.moe_ffn(x, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], mcfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    probs = torch.softmax(x.to(torch.float32) @ lp["router"].to(torch.float32), dim=-1)
+    eidx = torch.argmax(probs, dim=-1)
+    C = max(1, int(mcfg.capacity_factor * T_ / E))
+    onehot = F.one_hot(eidx, E)
+    rank = (onehot.cumsum(0) - 1).gather(1, eidx[:, None])[:, 0]       # place in its expert's group
+    keep = rank < C
+    nonzero = (y != 0).any(dim=-1)
+    assert torch.equal(nonzero, keep), f"moe {what}: the kept tokens are not each expert's first {C}"
+    assert bool((y[~keep] == 0).all())
+    n_e = onehot.sum(0)
+    drops = torch.bincount(eidx[~nonzero], minlength=E)
+    assert torch.equal(drops, (n_e - C).clamp_min(0)), f"moe {what}: drops by expert {drops.tolist()}"
+    kept = torch.nonzero(keep)[:, 0]
+    sample = kept[torch.randperm(kept.numel(), generator=g, device="cuda")[:MOE_SAMPLES]]
+    worst = 0.0
+    for t in sample.tolist():
+        e, xt = int(eidx[t]), x[t:t + 1]
+        ref = probs[t].max().to(x.dtype) * ((F.silu(xt @ lp["we_gate"][e]) * (xt @ lp["we_up"][e])) @ lp["we_down"][e])
+        worst = max(worst, float((y[t].float() - ref[0].float()).norm() / ref.float().norm()))
+    assert worst <= MOE_TOKEN_TOL, f"moe {what}: a kept token is {worst} off gate * swiglu (relative L2)"
+    out = {"T": T_, "experts": E, "capacity": C, "max_tokens_an_expert": int(n_e.max()),
+           "dropped": int((~keep).sum()), "experts_over_capacity": int((n_e > C).sum()), "aux": float(aux),
+           "sampled_rel_err": worst, "ms": ms}
+    log(f"[moe] moe_ffn {what}: {json.dumps(out)}")
+    return out
+
+
+def routing_flips(f_calls, c_calls, n_layers: int) -> dict:
+    """Where the chunked run's own router chose other experts than the flash
+    run's: the share of tokens per layer, in the prefill and over the
+    decode steps; and, step by step, the layers in which the token whose
+    logits the step compares (the prompt's last, then each decoded one)
+    would have gone to another expert."""
+    import torch
+
+    pre = [float((a != b).float().mean()) for a, b in zip(f_calls[:n_layers], c_calls[:n_layers])]
+    dec = [float(torch.cat([(f_calls[i] != c_calls[i]).float() for i in range(n_layers + l, len(f_calls), n_layers)])
+                 .mean()) for l in range(n_layers)]
+    by_step = [[l for l in range(n_layers) if bool(f_calls[s + l][-1] != c_calls[s + l][-1])]
+               for s in range(0, len(f_calls), n_layers)]
+    return {"prefill": pre, "decode": dec, "token_layers_by_step": by_step}
+
+
+def phase_moe(res: dict, seed: int) -> None:
+    """[moe]: llama4-scout (MoE every layer, 16 experts) and llama4-maverick
+    (a dense + MoE block, 128 experts) at full width through ``prefill``
+    (flash) and ``decode_step``; scout again through chunked attention with
+    the flash run's experts replayed, the logits held as phi4-mini's at
+    every step, and the tokens its own router would have sent elsewhere
+    reported; ``moe_ffn`` on one MoE layer of each checked independently at
+    T = 32768."""
+    import torch
+    from repro_torch.configs import lm_archs, shapes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import param_count
+
+    S = shapes.LM_SHAPES["prefill_32k"]["seq"]
+    res["moe"] = {}
+    runs = (("llama4-scout-17b-a16e", SCOUT_LAYERS, N_DECODE, True),
+            ("llama4-maverick-400b-a17b", MAVERICK_LAYERS, MAVERICK_DECODE, False))
+    for arch, depth, n_dec, against_chunked in runs:
+        full = lm_archs.get(arch)
+        cfg = replace(full, n_layers=depth)
+        log(f"reduced: {arch} depth {full.n_layers} -> {depth} layers, batch 32 -> 1 for prefill (prefill_32k), "
+            f"128 -> 1 for {n_dec} decode steps (decode_32k); width, experts ({full.moe.n_experts}), top-1, "
+            f"capacity factor and moe_every ({full.moe_every}) as the config's"
+            + (f"; chunked attention in blocks of {SCOUT_CHUNK} queries ({full.attn_chunk} in the config)"
+               if against_chunked else ""))
+        log(f"[moe] {arch}: device memory before it allocates: {mem_line()}")
+        g = torch.Generator(device="cuda").manual_seed(seed + 700)
+        params = T.init_params(cfg, g)
+        tokens = torch.randint(0, cfg.vocab, (1, S), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[moe] {arch}: {param_count(T.param_specs(cfg)) / 1e9:.3f} B parameters at {depth} layers "
+            f"({param_count(T.param_specs(full)) / 1e9:.3f} B at {full.n_layers}) in {cfg.dtype}; {mem_line()}")
+        out = {"layers": depth}
+        f_calls, c_calls = [], []
+        reset_all_launches()
+        with routing_recorded(f_calls):
+            fl, f_steps, f_toks = lm_run(params, tokens, replace(cfg, attn_impl="flash"), n_decode=n_dec)
+        launches = all_launches()
+        log(f"[moe] {arch} flash: {json.dumps(fl)}; launches {launches}")
+        assert fl["launches"] == depth and fl["other_flash_launches"] == 0, fl
+        assert launches["distance_topk"] == launches["grouped_distance_topk"] == 0, launches
+        for i, a in enumerate(f_steps):
+            assert a.shape == (1, cfg.vocab) and bool(torch.isfinite(a).all()), f"{arch} step {i}: non-finite logits"
+        out.update(flash=fl, launches=launches)
+        w = decode_bytes(cfg, 1)
+        moe_layers = [lp for lp in params["layers"] if "router" in lp]
+        experts = sum(lp[k].nbytes for lp in moe_layers for k in ("we_gate", "we_up", "we_down"))
+        out["decode_bytes"] = {"weights": w, "experts": experts, "bound_ms": w / HBM_BYTES_PER_S * 1e3}
+        log(f"[moe] {arch}: at batch 1 each decode step's batched expert product reads every expert's weights, "
+            f"{experts / 1e9:.3f} GB of {w / 1e9:.3f} GB a step (bound {out['decode_bytes']['bound_ms']:.3f} ms); "
+            f"measured {fl['decode_ms']:.3f} ms a step")
+        if against_chunked:
+            with routing_recorded(c_calls, replay=f_calls):
+                ch, c_steps, _ = lm_run(params, tokens, replace(cfg, attn_impl="chunked", attn_chunk=SCOUT_CHUNK),
+                                        decode_tokens=f_toks)
+            log(f"[moe] {arch} chunked, the flash run's experts replayed: {json.dumps(ch)}")
+            assert ch["launches"] == ch["other_flash_launches"] == 0, ch
+            assert len(c_calls) == len(f_calls), (len(c_calls), len(f_calls))
+            rel, flips = logit_errs(f_steps, c_steps), argmax_flips(f_steps, c_steps)
+            route = routing_flips(f_calls, c_calls, depth)
+            log(f"[moe] {arch} flash vs chunked logits (same experts), relative L2 error by step: "
+                f"{json.dumps([round(r, 6) for r in rel])}; argmax differs at {len(flips)} of {len(rel)} steps "
+                f"(step, chunked gap): {flips}; share of tokens the chunked run's own router sent to another "
+                f"expert by layer, and the layers where each step's own token was: {json.dumps(route)}")
+            out.update(chunked=ch, logit_rel_err=rel, argmax_flips=flips, routing_flips=route)
+        del f_calls, c_calls
+        lp = next(lp for lp in params["layers"] if "router" in lp)
+        x = torch.randn((S, cfg.d_model), generator=g, device="cuda").to(cfg.dtype)
+        r0 = lp["router"][:, 0].to(torch.float32)
+        skew = (x.float() + 2.0 * r0 / r0.norm()).to(cfg.dtype)    # expert 0's logit + 2: it overflows
+        out["moe_ffn"] = {"balanced": moe_check(f"{arch} balanced", x, lp, cfg.moe, g),
+                          "skewed": moe_check(f"{arch} skewed to expert 0", skew, lp, cfg.moe, g)}
+        assert out["moe_ffn"]["skewed"]["dropped"] > 0
+        res["moe"][arch] = out
+        del params, tokens, x, skew, lp, moe_layers
+        torch.cuda.empty_cache()
+        if against_chunked:
+            assert max(rel) < LOGIT_REL_TOL, (
+                f"{arch}: flash and chunked logits differ by {max(rel)} (tolerance {LOGIT_REL_TOL})")
+            for i, gap in flips:
+                assert gap <= ARGMAX_GAP, f"{arch} step {i}: the argmax moved between logits {gap} apart"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-items", type=int, default=200_000)
@@ -2359,6 +2826,8 @@ def main() -> int:
 
 def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     """Every phase in order; returns the kernels line's entries."""
+    import torch
+
     phase_kernels(res, fault_builds)
     log(f"[kernels] phase done at {time.time() - t_all:.1f} s")
     phase_split(res, fault_builds)
@@ -2409,11 +2878,22 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     phase_flash(res, fault_libs)
     log(f"[flash] phase done at {time.time() - t_all:.1f} s")
     phase_lm(res, args.seed, fault_libs)
-    log(f"[lm] phase done at {time.time() - t_all:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[lm] phase done at {time.time() - t_all:.1f} s; {mem_line()}")
+    phase_long500k(res, args.seed)
+    torch.cuda.empty_cache()
+    log(f"[long500k] phase done at {time.time() - t_all:.1f} s; {mem_line()}")
+    phase_moe(res, args.seed)
+    log(f"[moe] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
     pr = res["main"]["per_round_ms"]
+    # the launches of each kernel on the LM paths of this slice, counted from 0 around each
+    scout, maverick = res["moe"]["llama4-scout-17b-a16e"], res["moe"]["llama4-maverick-400b-a17b"]
+    lm_paths = lambda name: {"long500k_launches": res["long500k"]["launches"][name],
+                             "moe_launches": {"llama4-scout": scout["launches"][name],
+                                              "llama4-maverick": maverick["launches"][name]}}
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",
@@ -2430,7 +2910,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "read_path_launches": {p: v["grouped_distance_topk"] for p, v in res["read"]["launches"].items()},
          "federation_launches": {**res["federation"]["shard_launches"],
                                  "one_shard": res["federation"]["one_shard_launches"]["grouped_distance_topk"]},
-         "baselines_launches": res["baselines"]["launches"]["grouped_distance_topk"]},
+         "baselines_launches": res["baselines"]["launches"]["grouped_distance_topk"],
+         **lm_paths("grouped_distance_topk")},
         {"name": "distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
@@ -2444,7 +2925,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "read_path_launches": {"session": res["read"]["launches"]["session"]["distance_topk"]},
          "federation_launches": res["federation"]["launches"]["distance_topk"],
          "baselines_launches": res["baselines"]["launches"]["distance_topk"],
-         "recsys_launches": {a: v["launches"]["distance_topk"] for a, v in res["recsys"].items()}},
+         "recsys_launches": {a: v["launches"]["distance_topk"] for a, v in res["recsys"].items()},
+         **lm_paths("distance_topk")},
         {"name": "distance_topk (k < N path)", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk/distance_topk.py:101",
@@ -2456,7 +2938,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
                                              "stream_ms", "bound_ms", "kernels_per_call", "blocks")}
                       for d, v in res["split"].items()},
          "recsys_launches": {a: v["launches"]["distance_topk"] for a, v in res["recsys"].items()},
-         "b128": {**res["topk_merge"], "shape": "B=128 N=65536 D=1152 f32 l2 k=100"}},
+         "b128": {**res["topk_merge"], "shape": "B=128 N=65536 D=1152 f32 l2 k=100"},
+         **lm_paths("distance_topk")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
@@ -2468,7 +2951,9 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          **{a: f32k[a] for a in four},
          "tflops_counted": f32k["tflops_counted"], "tflops_issued": f32k["tflops_issued"],
          "ms_4k": res["flash_4k"]["ms"], "mma_sync_ms_4k": res["flash_4k"]["mma_sync_ms"],
-         "ptxas": res.get("wgmma_ptxas")},
+         "ptxas": res.get("wgmma_ptxas"), **lm_paths("flash_attention_wgmma"),
+         "other_flash_launches": {"lm": res["lm"]["flash"]["other_flash_launches"],
+                                  **lm_paths("flash_attention")}},
     ]
     return kernels
 

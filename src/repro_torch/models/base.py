@@ -87,9 +87,11 @@ def params_from_jax(tree, cfg, *, device="cuda"):
     of a ``param_specs``; arrays that numpy can read) -> the port's, by the
     config's type.  A recsys tree (``RecSysConfig``) is one flat dict: every
     array becomes a float32 tensor on ``device``.  An LM tree: the stacked
-    ``[L, ...]`` layer arrays become a list of ``cfg.n_layers`` per-layer
-    dicts, and every weight is cast once to ``cfg.dtype`` (what the
-    reference's per-use casts give)."""
+    ``[L, ...]`` layer arrays (dense or MoE: ``router``, ``we_*``) become a
+    list of ``cfg.n_layers`` per-layer dicts; with ``moe_every=2`` the
+    reference's ``{"dense": [L/2, ...], "moe": [L/2, ...]}`` blocks become
+    each block's dense layer, then its MoE layer.  Every weight is cast once
+    to ``cfg.dtype`` (what the reference's per-use casts give)."""
     from .recsys import RecSysConfig
 
     dev = resolve_device(device)
@@ -99,9 +101,14 @@ def params_from_jax(tree, cfg, *, device="cuda"):
     def conv(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
 
-    layers = tree["layers"]
-    if not isinstance(layers, dict) or "dense" in layers or "router" in layers:
-        raise NotImplementedError("MoE parameter trees are not ported yet (ROADMAP Queue 1 #11)")
+    def unstack(stacked, n):
+        return [{k: conv(np.asarray(v)[i]) for k, v in stacked.items()} for i in range(n)]
+
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [{k: conv(np.asarray(v)[i]) for k, v in layers.items()} for i in range(cfg.n_layers)]
+    layers = tree["layers"]
+    if "dense" in layers:
+        blocks = zip(unstack(layers["dense"], cfg.n_layers // 2), unstack(layers["moe"], cfg.n_layers // 2))
+        out["layers"] = [lp for pair in blocks for lp in pair]
+    else:
+        out["layers"] = unstack(layers, cfg.n_layers)
     return out

@@ -1,20 +1,147 @@
-"""eCP retrieval attention for long-context decode: only its configuration so far.
+"""eCP retrieval attention: the paper's index running inside the model.
 
-``LMConfig`` carries a ``RetrievalAttnConfig``.  What is left of ROADMAP
-Queue 1 #10 is this module: ``ClusteredKVCache``, ``init_clustered_cache``,
-``clustered_cache_update`` and ``retrieval_decode_attention``
-(``repro.models.retrieval_attention``), and
-``transformer.retrieval_decode_step``; #10's other half, the recsys models
-(``models/recsys.py``), is ported.
+The reference's ``repro.models.retrieval_attention`` on one device.  For
+long-context decode the KV cache is organised as an eCP leaf level:
+clusters of ``cs`` consecutive tokens, each with a centroid (the running
+mean of its keys).  A decode step scores the query against every centroid
+(mean over the query group), keeps the top-b complete clusters per kv head
+plus the current, partial one, and runs exact attention over the valid
+tokens of those clusters: at 524288 tokens, cs = 512 and b = 32, 1024
+centroid scores and 33 x 512 token scores a head instead of 524288.
+
+The cache is written in place (``clustered_cache_update``), as the port's
+``transformer.decode_step`` writes its cache: the reference returns a new
+cache each step, and a copy of a 64 GiB cache a step cannot exist on the
+card.  The decode step itself reaches no kernel in the reference (einsum
+and ``jax.lax.top_k``) and none here.
+
+Not ported yet, each raising ``NotImplementedError``: the sequence-parallel
+variants over a mesh (``retrieval_update_and_attend_sharded``,
+``retrieval_decode_attention_sharded``; ROADMAP Queue 1 #13).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["RetrievalAttnConfig"]
+import torch
+
+from ..device import resolve_device
+
+__all__ = [
+    "ClusteredKVCache", "RetrievalAttnConfig", "init_clustered_cache", "clustered_cache_update",
+    "retrieval_decode_attention", "retrieval_update_and_attend_sharded", "retrieval_decode_attention_sharded",
+]
 
 
 @dataclass(frozen=True)
 class RetrievalAttnConfig:
     cluster_size: int = 512     # cs: tokens per KV cluster (eCP cluster cap)
     top_clusters: int = 32      # b: search expansion
+
+
+@dataclass
+class ClusteredKVCache:
+    k: torch.Tensor          # [L, B, Hkv, nC, cs, d] in cfg.dtype
+    v: torch.Tensor          # [L, B, Hkv, nC, cs, d]
+    centroids: torch.Tensor  # [L, B, Hkv, nC, d] float32, running mean of keys
+    pos: int                 # tokens written so far
+
+
+def init_clustered_cache(n_layers, batch, n_kv, max_seq, cs, d, dtype=torch.bfloat16, *, device="cuda"):
+    nC = -(-max_seq // cs)
+    dev = resolve_device(device)
+    shape = (n_layers, batch, n_kv, nC, cs, d)
+    return ClusteredKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
+        centroids=torch.zeros(shape[:4] + (d,), dtype=torch.float32, device=dev),
+        pos=0,
+    )
+
+
+def clustered_cache_update(layer_k, layer_v, layer_cent, k_new, v_new, pos: int, cs: int):
+    """Write one token's k/v into its cluster and update that cluster's
+    centroid, in place.
+
+    layer_k/v [B, Hkv, nC, cs, d]; layer_cent [B, Hkv, nC, d];
+    k_new/v_new [B, Hkv, d].  The centroid is ``old + (k - old) / n`` in
+    float32, the reference's order of operations.
+    """
+    cid, off = divmod(pos, cs)
+    layer_k[:, :, cid, off] = k_new.to(layer_k.dtype)
+    layer_v[:, :, cid, off] = v_new.to(layer_v.dtype)
+    old_c = layer_cent[:, :, cid]
+    # a tensor divisor on the centroids' device: CUDA turns division by a
+    # host scalar into a product with its reciprocal, another rounding
+    n = torch.full((), off + 1, dtype=torch.float32, device=layer_cent.device)
+    layer_cent[:, :, cid] = old_c + (k_new.to(torch.float32) - old_c) / n
+
+
+def retrieval_decode_attention(q, layer_k, layer_v, layer_cent, pos: int, *, cs: int, top_b: int,
+                               scale: float | None = None):
+    """One decode step of eCP retrieval attention.
+
+    q [B, Hq, d] (single token); layer_k/v [B, Hkv, nC, cs, d];
+    layer_cent [B, Hkv, nC, d]; pos: tokens cached, INCLUDING the current
+    token already written.  Returns [B, Hq, d] float32.
+    """
+    B, Hq, d = q.shape
+    Hkv, nC = layer_k.shape[1], layer_k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    dev = q.device
+    qg = (q.to(torch.float32) * scale).reshape(B, Hkv, group, d)
+
+    # 1) index traversal: inner product with every centroid, mean over the
+    #    query group; only complete clusters may be chosen
+    cur = (pos - 1) // cs
+    cent_scores = torch.einsum("bhgd,bhnd->bhgn", qg, layer_cent).mean(2)      # [B, Hkv, nC]
+    cent_scores = torch.where(torch.arange(nC, device=dev) < cur, cent_scores, -torch.inf)
+
+    # 2) search expansion: the top-b complete clusters and the current one.
+    #    Slots whose score is -inf (fewer than b complete clusters) hold any
+    #    index: the isfinite mask below removes them.
+    b = min(top_b, nC)
+    top_s, top_idx = torch.topk(cent_scores, b, dim=-1)                         # [B, Hkv, b]
+    sel = torch.cat([top_idx, torch.full((B, Hkv, 1), cur, dtype=top_idx.dtype, device=dev)], dim=-1)
+    sel_s = torch.cat([top_s, torch.zeros((B, Hkv, 1), device=dev)], dim=-1)    # the current one's is 0
+
+    # 3) gather and exact attention over the selected clusters' valid tokens
+    bi = torch.arange(B, device=dev)[:, None, None]
+    hi = torch.arange(Hkv, device=dev)[None, :, None]
+    ks = layer_k[bi, hi, sel].to(torch.float32)                                 # [B, Hkv, b+1, cs, d]
+    vs = layer_v[bi, hi, sel].to(torch.float32)
+    tok_idx = sel[..., None] * cs + torch.arange(cs, device=dev)                # [B, Hkv, b+1, cs]
+    valid = (tok_idx < pos) & (sel[..., None] >= 0) & torch.isfinite(sel_s)[..., None]
+    s = torch.einsum("bhgd,bhncd->bhgnc", qg, ks)                               # [B, Hkv, g, b+1, cs]
+    s = torch.where(valid[:, :, None], s, -torch.inf)
+    sf = s.reshape(B, Hkv, group, -1)
+    m = torch.amax(sf, dim=-1, keepdim=True)
+    p = torch.exp(sf - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    p = torch.where(torch.isfinite(sf), p, 0.0)
+    denom = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
+    p = (p / denom).reshape(B, Hkv, group, b + 1, cs)
+    out = torch.einsum("bhgnc,bhncd->bhgd", p, vs)
+    return out.reshape(B, Hq, d)
+
+
+def retrieval_update_and_attend_sharded(*args, **kwargs):
+    raise NotImplementedError(
+        "retrieval_update_and_attend_sharded (the clustered cache sharded over a mesh) is not ported yet "
+        "(ROADMAP Queue 1 #13)"
+    )
+
+
+def _local_retrieval_attend(*args, **kwargs):
+    raise NotImplementedError(
+        "_local_retrieval_attend (the shard-local body of the sharded retrieval attention) is not ported yet "
+        "(ROADMAP Queue 1 #13)"
+    )
+
+
+def retrieval_decode_attention_sharded(*args, **kwargs):
+    raise NotImplementedError(
+        "retrieval_decode_attention_sharded (the clustered cache sharded over a mesh) is not ported yet "
+        "(ROADMAP Queue 1 #13)"
+    )

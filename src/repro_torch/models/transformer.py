@@ -1,27 +1,31 @@
-"""Decoder-only LM family on one device: dense GQA transformers.
+"""Decoder-only LM family on one device: dense GQA transformers and top-1 MoE variants.
 
 The reference's model (``repro.models.transformer``) as plain functions over
-a parameter dict: RoPE, SwiGLU, GQA, optional QKV bias.  The serving path
-is ``prefill`` (the prompt, attention by ``cfg.attn_impl``: ``"flash"``
-runs the Hopper kernel in every layer) and then ``decode_step`` (one token,
-chunked attention over the cache, as the reference does on one device).
+a parameter dict: RoPE, SwiGLU, GQA, optional QKV bias, optional MoE FFN
+(every layer, or alternating dense and MoE layers: ``moe_every=2``).  The
+serving path is ``prefill`` (the prompt, attention by ``cfg.attn_impl``:
+``"flash"`` runs the Hopper kernel in every layer) and then ``decode_step``
+(one token, chunked attention over the cache, as the reference does on one
+device), or ``retrieval_decode_step`` (one token, eCP retrieval attention
+over a clustered cache: ``retrieval_attention.py``).
 
 Parameters: ``{"embed": [V, D], "layers": [per-layer dict] * n_layers,
 "final_norm": [D], "lm_head": [D, V]}``; the reference stacks the layers
-as ``[L, ...]`` arrays and scans them, the port keeps them apart and loops.
-Every weight is held in ``cfg.dtype``, cast once when it is made or loaded
-(``init_params``, ``base.params_from_jax``): numerically what the
-reference's ``_cast_layers`` and per-use ``.astype(cfg.dtype)`` give, at
-half the memory of float32 weights in bf16.
+as ``[L, ...]`` arrays (with ``moe_every=2`` as ``{"dense", "moe"}``
+stacks of ``L / 2`` blocks) and scans them, the port keeps them apart and
+loops, a block's dense layer before its MoE layer.  Every weight is held in
+``cfg.dtype``, cast once when it is made or loaded (``init_params``,
+``base.params_from_jax``): numerically what the reference's
+``_cast_layers`` and per-use ``.astype(cfg.dtype)`` give, at half the
+memory of float32 weights in bf16.
 
-Not ported yet, each raising ``NotImplementedError``: MoE FFNs (``cfg.moe``,
-ROADMAP Queue 1 #11), sharding rules (Queue 1 #13), ``retrieval_decode_step``
-and the clustered cache (Queue 1 #10), ``lm_loss`` and training (Queue 1
-#11).
+Not ported yet, each raising ``NotImplementedError``: sharding rules
+(ROADMAP Queue 1 #13) and ``lm_loss`` (training, Queue 1 #12).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any
 
 import torch
@@ -31,7 +35,13 @@ from .attention import attention
 from .base import ParamSpec as P
 from .base import init_params as _init_params
 from .layers import rms_norm, rope, swiglu
-from .retrieval_attention import RetrievalAttnConfig
+from .moe import MoEConfig, moe_ffn
+from .retrieval_attention import (
+    ClusteredKVCache,
+    RetrievalAttnConfig,
+    clustered_cache_update,
+    retrieval_decode_attention,
+)
 
 __all__ = [
     "LMConfig", "ShardingRules", "KVCache", "param_specs", "init_params", "forward", "lm_loss",
@@ -64,8 +74,8 @@ class LMConfig:
     max_seq: int = 4096
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    moe: Any = None                 # MoE FFN config; not ported (Queue 1 #11)
-    moe_every: int = 1
+    moe: MoEConfig | None = None
+    moe_every: int = 1              # 2 => alternate dense/MoE layers (Llama-4)
     retrieval: RetrievalAttnConfig = field(default_factory=RetrievalAttnConfig)
     attn_impl: str = "chunked"      # full | chunked | flash
     attn_chunk: int = 1024
@@ -79,15 +89,14 @@ class LMConfig:
         return self.n_kv_heads * self.d_head
 
 
-def _check(cfg: LMConfig, rules) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP Queue 1 #11)")
+def _check(rules) -> None:
     if rules is not None and (rules.batch or rules.model is not None or rules.seq is not None):
         raise NotImplementedError("sharding rules are not ported yet: the port runs on one device (ROADMAP Queue 1 #13)")
 
 
 # ------------------------------------------------------------------ params
-def _layer_specs(cfg: LMConfig) -> dict:
+def _layer_specs(cfg: LMConfig, *, moe: bool) -> dict:
+    """Specs of one layer with a dense or an MoE FFN."""
     D, F = cfg.d_model, cfg.d_ff
     pdt = cfg.param_dtype
     layers: dict[str, P] = {
@@ -102,18 +111,42 @@ def _layer_specs(cfg: LMConfig) -> dict:
         layers["bq"] = P((cfg.q_dim,), pdt, "zeros")
         layers["bk"] = P((cfg.kv_dim,), pdt, "zeros")
         layers["bv"] = P((cfg.kv_dim,), pdt, "zeros")
-    layers["w_gate"] = P((D, F), pdt)
-    layers["w_up"] = P((D, F), pdt)
-    layers["w_down"] = P((F, D), pdt)
+    if not moe:
+        layers["w_gate"] = P((D, F), pdt)
+        layers["w_up"] = P((D, F), pdt)
+        layers["w_down"] = P((F, D), pdt)
+    else:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        layers["router"] = P((D, E), pdt)
+        layers["we_gate"] = P((E, D, Fe), pdt)
+        layers["we_up"] = P((E, D, Fe), pdt)
+        layers["we_down"] = P((E, Fe, D), pdt)
     return layers
 
 
+def _is_block(cfg: LMConfig) -> bool:
+    return cfg.moe is not None and cfg.moe_every == 2
+
+
+def _moe_layers(cfg: LMConfig) -> list[bool]:
+    """Whether each layer's FFN is an MoE, in the port's layer order (with
+    ``moe_every=2``, each block's dense layer, then its MoE layer)."""
+    if cfg.moe is None:
+        return [False] * cfg.n_layers
+    if cfg.moe_every not in (1, 2):
+        raise ValueError("moe_every must be 1 or 2")
+    if not _is_block(cfg):
+        return [True] * cfg.n_layers
+    if cfg.n_layers % 2:
+        raise ValueError("moe_every=2 needs an even layer count")
+    return [i % 2 == 1 for i in range(cfg.n_layers)]
+
+
 def param_specs(cfg: LMConfig):
-    _check(cfg, None)
     pdt = cfg.param_dtype
     return {
         "embed": P((cfg.vocab, cfg.d_model), pdt, "embed"),
-        "layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)],
+        "layers": [_layer_specs(cfg, moe=m) for m in _moe_layers(cfg)],
         "final_norm": P((cfg.d_model,), pdt, "ones"),
         "lm_head": P((cfg.d_model, cfg.vocab), pdt),
     }
@@ -142,12 +175,18 @@ def _qkv(h, lp, cfg: LMConfig, positions):
     return q, k, v
 
 
-def _ffn(h2, lp):
-    return swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+def _ffn(h2, lp, cfg: LMConfig):
+    """The layer's FFN on h2 [B, S, D]: (y, the MoE aux loss, 0.0 if dense)."""
+    if "router" not in lp:
+        return swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+    B, S, D = h2.shape
+    y, aux = moe_ffn(h2.reshape(B * S, D), lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg.moe)
+    return y.reshape(B, S, D), aux
 
 
 def _layer(x, lp, cfg: LMConfig, positions):
-    """One transformer layer; also returns its k, v [B, Hkv, S, dh]."""
+    """One transformer layer; also returns its k, v [B, Hkv, S, dh] and
+    its aux loss."""
     B, S, _ = x.shape
     h = rms_norm(x, lp["attn_norm"])
     q, k, v = _qkv(h, lp, cfg, positions)
@@ -156,7 +195,8 @@ def _layer(x, lp, cfg: LMConfig, positions):
     o = o.transpose(1, 2).reshape(B, S, cfg.q_dim).to(x.dtype)    # [B, S, Hq*dh]
     x = x + o @ lp["wo"]
     h2 = rms_norm(x, lp["ffn_norm"])
-    return x + _ffn(h2, lp), k, v
+    y, aux = _ffn(h2, lp, cfg)
+    return x + y, k, v, aux
 
 
 def _embed(params, tokens, cfg: LMConfig):
@@ -164,20 +204,26 @@ def _embed(params, tokens, cfg: LMConfig):
 
 
 def forward(params, tokens, cfg: LMConfig, rules: ShardingRules | None = None):
-    """tokens [B, S] int -> (logits [B, S, V] float32, aux loss 0)."""
-    _check(cfg, rules)
+    """tokens [B, S] int -> (logits [B, S, V] float32, the layers' summed
+    MoE aux loss, float32)."""
+    _check(rules)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, _, _ = _layer(x, lp, cfg, positions)
+        x, _, _, a = _layer(x, lp, cfg, positions)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["lm_head"]).to(torch.float32)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def lm_loss(params, batch, cfg: LMConfig, rules: ShardingRules | None = None):
-    raise NotImplementedError("lm_loss and training (with a backward flash kernel) are not ported yet (ROADMAP Queue 1 #11)")
+    raise NotImplementedError(
+        "lm_loss and training are not ported yet: the reference trains through chunked attention, "
+        "so the port's needs torch autograd through _chunked (ROADMAP Queue 1 #12)"
+    )
 
 
 # ------------------------------------------------------------------ serving
@@ -203,7 +249,7 @@ def prefill(params, tokens, cfg: LMConfig, rules: ShardingRules | None = None, *
     """Run the prompt; return (last-position logits [B, V] float32, filled
     KVCache).  The cache holds ``max_seq`` positions (default
     ``max(cfg.max_seq, S)``), zeros past the prompt."""
-    _check(cfg, rules)
+    _check(rules)
     B, S = tokens.shape
     Smax = max_seq or max(cfg.max_seq, S)
     x = _embed(params, tokens, cfg)
@@ -212,12 +258,32 @@ def prefill(params, tokens, cfg: LMConfig, rules: ShardingRules | None = None, *
     kall = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
     vall = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, k, v = _layer(x, lp, cfg, positions)
+        x, k, v, _ = _layer(x, lp, cfg, positions)
         kall[i, :, :, :S] = k
         vall[i, :, :, :S] = v
     x = rms_norm(x, params["final_norm"])
     logits = (x[:, -1] @ params["lm_head"]).to(torch.float32)
     return logits, KVCache(k=kall, v=vall, pos=S)
+
+
+def _decode_layer(x, lp, cfg: LMConfig, positions, attend):
+    """One layer on one new token per sequence.  ``attend(q, k, v)`` (each
+    [B, H, dh]) writes k and v into the layer's cache and returns the
+    attention output [B, Hq, dh] in float32."""
+    B = x.shape[0]
+    h = rms_norm(x, lp["attn_norm"])
+    q, k, v = _qkv(h, lp, cfg, positions)                           # [B, 1, H, dh]
+    o = attend(q[:, 0], k[:, 0], v[:, 0])
+    x = x + o.reshape(B, 1, cfg.q_dim).to(x.dtype) @ lp["wo"]
+    h2 = rms_norm(x, lp["ffn_norm"])
+    y, _ = _ffn(h2, lp, cfg)
+    return x + y
+
+
+def _attend_cache(q, k, v, kc, vc, pos, kv_lens):
+    kc[:, :, pos] = k.to(kc.dtype)
+    vc[:, :, pos] = v.to(vc.dtype)
+    return attention(q[:, :, None], kc, vc, causal=True, kv_lens=kv_lens, impl="chunked")[:, :, 0]
 
 
 def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, rules: ShardingRules | None = None):
@@ -228,7 +294,7 @@ def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, rules: ShardingRu
     cache a step would double its memory); the returned cache shares them,
     with ``pos`` one further.
     """
-    _check(cfg, rules)
+    _check(rules)
     B = tokens.shape[0]
     pos = cache.pos
     if pos >= cache.k.shape[3]:
@@ -237,19 +303,39 @@ def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, rules: ShardingRu
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     kv_lens = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        h = rms_norm(x, lp["attn_norm"])
-        q, k, v = _qkv(h, lp, cfg, positions)                       # [B, 1, H, dh]
-        cache.k[i, :, :, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[i, :, :, pos] = v[:, 0].to(cache.v.dtype)
-        o = attention(q.transpose(1, 2), cache.k[i], cache.v[i], causal=True, kv_lens=kv_lens, impl="chunked")
-        o = o.transpose(1, 2).reshape(B, 1, cfg.q_dim).to(x.dtype)
-        x = x + o @ lp["wo"]
-        h2 = rms_norm(x, lp["ffn_norm"])
-        x = x + _ffn(h2, lp)
+        x = _decode_layer(x, lp, cfg, positions, partial(_attend_cache, kc=cache.k[i], vc=cache.v[i],
+                                                         pos=pos, kv_lens=kv_lens))
     x = rms_norm(x, params["final_norm"])
     logits = (x[:, 0] @ params["lm_head"]).to(torch.float32)
     return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)
 
 
-def retrieval_decode_step(params, cache, tokens, cfg: LMConfig, rules: ShardingRules | None = None):
-    raise NotImplementedError("retrieval_decode_step and the clustered KV cache are not ported yet (ROADMAP Queue 1 #10)")
+def _attend_retrieval(q, k, v, kc, vc, cent, pos, cfg: LMConfig):
+    cs = cfg.retrieval.cluster_size
+    clustered_cache_update(kc, vc, cent, k, v, pos, cs)
+    return retrieval_decode_attention(q, kc, vc, cent, pos + 1, cs=cs, top_b=cfg.retrieval.top_clusters)
+
+
+def retrieval_decode_step(params, cache: ClusteredKVCache, tokens, cfg: LMConfig,
+                          rules: ShardingRules | None = None):
+    """Long-context decode with eCP retrieval attention (the paper's
+    technique).  tokens [B] -> (logits [B, V] float32, cache).
+
+    As ``decode_step``, the token's k and v and its cluster's centroid are
+    written into ``cache``'s tensors in place, and the returned cache shares
+    them with ``pos`` one further.
+    """
+    _check(rules)
+    B = tokens.shape[0]
+    pos = cache.pos
+    nC, cs = cache.k.shape[3], cache.k.shape[4]
+    if pos >= nC * cs:
+        raise ValueError(f"the clustered cache holds {nC * cs} positions, all written")
+    x = _embed(params, tokens[:, None], cfg)
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        x = _decode_layer(x, lp, cfg, positions, partial(_attend_retrieval, kc=cache.k[i], vc=cache.v[i],
+                                                         cent=cache.centroids[i], pos=pos, cfg=cfg))
+    x = rms_norm(x, params["final_norm"])
+    logits = (x[:, 0] @ params["lm_head"]).to(torch.float32)
+    return logits, ClusteredKVCache(k=cache.k, v=cache.v, centroids=cache.centroids, pos=pos + 1)

@@ -31,6 +31,8 @@ from repro_torch.models.attention import attention
 from repro_torch.models.base import init_params, param_count, params_from_jax
 
 ARCHS = ["phi4-mini-3.8b", "qwen2-7b"]
+ALL_ARCHS = ["phi4-mini-3.8b", "mistral-large-123b", "qwen2-7b", "llama4-maverick-400b-a17b",
+             "llama4-scout-17b-a16e"]
 TORCH_OF = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -44,7 +46,7 @@ def _t(a, dtype=torch.float32):
 
 # ------------------------------------------------------------------- configs
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_are_the_reference_values(arch, reduced):
     c, j = lm_archs.get(arch, reduced=reduced), jarchs.get(arch, reduced=reduced)
     for f in fields(c):
@@ -53,6 +55,8 @@ def test_configs_are_the_reference_values(arch, reduced):
             assert a == TORCH_OF[b], f.name
         elif f.name == "retrieval":
             assert (a.cluster_size, a.top_clusters) == (b.cluster_size, b.top_clusters)
+        elif f.name == "moe" and b is not None:
+            assert {g.name: getattr(a, g.name) for g in fields(a)} == {g.name: getattr(b, g.name) for g in fields(b)}
         else:
             assert a == b, f.name
     assert param_count(T.param_specs(c)) == jax_param_count(JT.param_specs(j))
@@ -65,21 +69,24 @@ def test_shapes_are_the_reference_values():
 
 
 def test_unported_configs_and_paths_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        lm_archs.get("llama4-scout-17b-a16e")
+    from repro_torch.models import moe as M
+    from repro_torch.models import retrieval_attention as R
+
     cfg = lm_archs.get("phi4-mini-3.8b", reduced=True)
     p = init_params(T.param_specs(cfg), torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.forward(p, toks, replace(cfg, moe=object()))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.param_specs(replace(cfg, moe=object()))
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        T.retrieval_decode_step(p, None, toks[:, 0], cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="autograd through _chunked .*Queue 1 #12"):
         T.lm_loss(p, {"tokens": toks}, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-        T.prefill(p, toks, cfg, T.ShardingRules(model="model"))
+    rules = T.ShardingRules(model="model")
+    for call in (lambda: T.prefill(p, toks, cfg, rules), lambda: T.forward(p, toks, cfg, rules),
+                 lambda: T.decode_step(p, None, toks[:, 0], cfg, rules),
+                 lambda: T.retrieval_decode_step(p, None, toks[:, 0], cfg, rules)):
+        with pytest.raises(NotImplementedError, match="Queue 1 #13"):
+            call()
+    for fn in (M.moe_ffn_ep, R.retrieval_update_and_attend_sharded, R.retrieval_decode_attention_sharded,
+               R._local_retrieval_attend):
+        with pytest.raises(NotImplementedError, match=f"{fn.__name__}.*Queue 1 #13"):
+            fn()
     # the empty rules are the single-device path
     T.prefill(p, toks, cfg, T.ShardingRules())
 
