@@ -158,6 +158,31 @@ Phases, none of whose failures is caught:
    other experts by layer; ``moe_ffn`` on one MoE layer of each at 32768
    tokens (as drawn, and skewed past capacity) held against an
    independent reading of its dispatch.
+9. train: the training path, no kernel on it (launch counters zeroed
+   around each part, each must read 0).  Checks at phi4-mini's full width
+   and 2 layers, seq 512: gradients with remat equal those without it bit
+   for bit; bf16 compute against float32 on the same float32 master
+   weights (loss within 1e-2, every leaf's gradient cosine >= 0.99); one
+   AdamW update of three leaves on the card within 1e-6 of the CPU's.
+   (a) ``make_lm_trainer`` at phi4-mini's full width and TRAIN_LAYERS
+   layers on ``train_4k``'s 4096 tokens at batch 1: TRAIN_STEPS steps of
+   ``StepLoader(lm_batch)`` batches (forward+backward and optimizer ms
+   from CUDA events, tokens/s, the model FLOPs' share of the bf16 peak,
+   peak memory against the state's bytes), then one batch TRAIN_REPEAT
+   times: the loss falls at every step.  (b) ``TrainSupervisor`` on the
+   reduced phi4 config: 20 steps, a checkpoint every 5 (async), failures
+   at steps 7 and 13: 2 restarts, final weights equal to a failure-free
+   run's, the last checkpoint equal to the final state, and one leaf read
+   back with ``numpy.fromfile`` and its ``.zarray``.  (c) GraphSAGE
+   (graphsage-reddit) at each of its shapes: ``minibatch_lg`` (a
+   232965-node, 114.6M-edge ``random_graph``, ``CSRGraph``,
+   ``sample_hops`` of 1024 seeds at fanouts 15-10), ``full_graph_sm``,
+   ``molecule``, and ``ogb_products`` full batch when its reckoned peak
+   fits; step 0's loss and gradients on the card against the CPU's within
+   1e-4 (all but ogb_products), then AdamW steps.  (d) The four recsys
+   architectures at ``train_batch`` (65536 rows, full vocabularies): step
+   0's updated parameters on the card against the CPU's at a 4096-row
+   slice, then 3 AdamW steps through ``make_train_step``.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Distances agree within 1e-4 relative:
@@ -305,6 +330,42 @@ FED_SHARDS = 4
 FED_QUERIES = 32
 IVF_LISTS = 440
 IVF_ITERS = 6
+# train (a): phi4-mini at full width, float32 master weights and AdamW
+# moments, bf16 compute.  State: 16 bytes a parameter (weight, gradient,
+# two moments); 100.66 M parameters a layer, 1.229 B in the embedding and
+# lm_head: 4.451 B at 32 layers, 71.2 GB.  The optimizer works in place,
+# so no second tree of them is held; the float32 logits of 4095 tokens
+# (3.28 GB) and their softmax and gradient come on top at the loss.
+TRAIN_LAYERS = 32
+TRAIN_STEPS = 6
+TRAIN_REPEAT = 8
+TRAIN_LR = 3e-4
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_SEQ = 512
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_COS = 0.99
+ADAMW_RTOL = 1e-6
+# train (b): the supervisor
+SUP_STEPS = 20
+SUP_EVERY = 5
+SUP_FAILS = {7: 1, 13: 1}
+# train (c), (d): AdamW steps a shape, step 0's loss and gradients against
+# the CPU's within GNN_RTOL (max |a - b| over the leaf's max |b|); recsys at
+# a slice of train_batch's 65536 rows (see train_recsys for its checks).
+# In float32 the two devices' rounding tips ReLUs at 0 and the signs of
+# near-zero gradients, which AdamW's first step turns into moves of 2 lr
+# (seen on the H100: bst and dcn-v2, float32 gradients 1.1e-2 and 2.7e-3 of
+# a leaf's largest entry apart, 2043 and 2668 updated entries off by more
+# than 1e-2 lr), so the recsys step is held in float64 (the gradients, and
+# each update within lr / eps times its leaf's gradient difference).
+GNN_STEPS = 3
+GNN_LR = 1e-3
+GNN_RTOL = 1e-4
+RECSYS_STEPS = 3
+RECSYS_LR = 1e-3
+RECSYS_SLICE = 4096
+RECSYS_GRAD_COS = 0.999
+ADAMW_EPS = 1e-8
 
 
 def log(*a) -> None:
@@ -2785,6 +2846,464 @@ def phase_moe(res: dict, seed: int) -> None:
                 assert gap <= ARGMAX_GAP, f"{arch} step {i}: the argmax moved between logits {gap} apart"
 
 
+# --------------------------------------------------------------- train phase
+def leaf_names(tree, pre: str = "") -> list[str]:
+    """Names of a tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{pre}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{pre}/{i}")]
+    return [] if tree is None else [pre or "/"]
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| over max |b| (float32, on the CPU)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def cosine(a, b) -> float:
+    """Cosine of two tensors (1 when both are zero)."""
+    a, b = a.detach().double().flatten().cpu(), b.detach().double().flatten().cpu()
+    if not a.any() and not b.any():
+        return 1.0
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def lm_train_flops(cfg, n_params: int, tokens: int, seq: int, batch: int) -> int:
+    """Model FLOPs of one training step: 6 a parameter a token over the
+    parameters that multiply (all but the embedding, a lookup), plus
+    attention as the chunked path computes it: q k^T and p v over the full
+    seq x seq (no causal skip), 4 B Hq S^2 dh a layer forward, three times
+    that with the backward pass.  Remat's recompute is not counted."""
+    dense = 6 * (n_params - cfg.vocab * cfg.d_model) * tokens
+    attn = 12 * cfg.n_layers * batch * cfg.n_heads * seq * seq * cfg.d_head
+    return dense + attn
+
+
+def train_checks(out: dict, seed: int) -> None:
+    """phi4-mini at full width and 2 layers, seq 512, float32 master
+    weights: remat bit for bit, bf16 against float32, one AdamW update on
+    the card against the CPU."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.cells import value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, apply_updates
+    from repro_torch.tree import tree_leaves
+
+    cfg = replace(lm_archs.get("phi4-mini-3.8b"), n_layers=TRAIN_CHECK_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(seed + 800)
+    params = T.init_params(cfg, g, device="cuda", dtype=torch.float32)
+    batch = {"tokens": torch.as_tensor(lm_batch(seed, 0, batch=1, seq=TRAIN_CHECK_SEQ + 1, vocab=cfg.vocab)["tokens"],
+                                       device="cuda")}
+    loss_of = lambda c: (lambda p, b: T.lm_loss(p, b, c))
+    names = leaf_names(params)
+    (l1, _), g1 = value_and_grad(loss_of(cfg), params, batch)
+    (l0, _), g0 = value_and_grad(loss_of(replace(cfg, remat=False)), params, batch)
+    differ = [n for n, a, b in zip(names, tree_leaves(g1), tree_leaves(g0)) if not torch.equal(a, b)]
+    out["remat"] = {"loss_equal": bool(torch.equal(l0, l1)), "leaves": len(names), "leaves_differing": differ}
+    log(f"[train] checks: phi4-mini width, {TRAIN_CHECK_LAYERS} layers, seq {TRAIN_CHECK_SEQ}: gradients with remat "
+        f"against without: loss equal {out['remat']['loss_equal']}, {len(names) - len(differ)} of {len(names)} "
+        f"leaves bit-identical; differing {differ}")
+    del g0
+    (l32, _), g32 = value_and_grad(loss_of(replace(cfg, dtype=torch.float32)), params, batch)
+    coss = {n: cosine(a, b) for n, a, b in zip(names, tree_leaves(g1), tree_leaves(g32))}
+    loss_rel = abs(float(l1) - float(l32)) / abs(float(l32))
+    worst = min(coss, key=coss.get)
+    out["bf16_vs_f32"] = {"loss_bf16": float(l1), "loss_f32": float(l32), "loss_rel": loss_rel,
+                          "min_cos": coss[worst], "min_cos_leaf": worst, "cos": coss}
+    log(f"[train] checks: bf16 against float32 compute on the same float32 master weights: loss {float(l1):.6f} / "
+        f"{float(l32):.6f} (rel {loss_rel:.3e}); gradient cosine by leaf {json.dumps({k: round(v, 6) for k, v in coss.items()})}")
+    del g32
+    three = {"embed": params["embed"], "wq": params["layers"][0]["wq"], "attn_norm": params["layers"][0]["attn_norm"]}
+    grads3 = {"embed": g1["embed"], "wq": g1["layers"][0]["wq"], "attn_norm": g1["layers"][0]["attn_norm"]}
+    del g1
+    opt = adamw(TRAIN_LR)
+
+    def one_update(dev):
+        p = {k: v.detach().to(dev, copy=True) for k, v in three.items()}
+        gr = {k: v.to(dev, copy=True) for k, v in grads3.items()}
+        u, _ = opt.update(gr, opt.init(p), p)
+        apply_updates(p, u)
+        return {k: v.cpu() for k, v in p.items()}, {k: v.cpu() for k, v in u.items()}
+
+    pc, uc = one_update("cuda")
+    pp, up = one_update("cpu")
+    errs = {k: {"update": rel_max(uc[k], up[k]), "param": rel_max(pc[k], pp[k])} for k in three}
+    out["adamw_card_vs_cpu"] = errs
+    log(f"[train] checks: one AdamW update (lr {TRAIN_LR}, clip 1.0, wd 0.1) of embed {tuple(three['embed'].shape)}, "
+        f"layer 0 wq and attn_norm, card against CPU, max |a - b| / max |b|: {json.dumps(errs)}")
+    del params, three, grads3
+    torch.cuda.empty_cache()
+    assert out["remat"]["loss_equal"] and not differ, f"remat changes the gradients of {differ}"
+    assert loss_rel <= BF16_LOSS_RTOL, f"bf16 loss {float(l1)} vs float32 {float(l32)}"
+    assert coss[worst] >= BF16_GRAD_COS, f"{worst}: gradient cosine {coss[worst]}"
+    for k, e in errs.items():
+        assert e["update"] <= ADAMW_RTOL and e["param"] <= ADAMW_RTOL, (k, e)
+
+
+def train_lm(out: dict, seed: int) -> None:
+    """(a) make_lm_trainer at phi4-mini's full width and TRAIN_LAYERS
+    layers, train_4k's sequence at batch 1."""
+    import torch
+    from functools import partial
+
+    from repro_torch.configs import lm_archs, shapes
+    from repro_torch.data import StepLoader, lm_batch
+    from repro_torch.launch.train import make_lm_trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import param_count
+
+    full = lm_archs.get("phi4-mini-3.8b")
+    cfg = replace(full, n_layers=TRAIN_LAYERS)
+    S, B_full = shapes.LM_SHAPES["train_4k"]["seq"], shapes.LM_SHAPES["train_4k"]["batch"]
+    B = 1
+    layer = param_count(T._layer_specs(full, moe=False))
+    outer = 2 * full.vocab * full.d_model + full.d_model
+    n = param_count(T.param_specs(cfg))
+    reck = {L: 16 * (L * layer + outer) for L in (32, 24, 16)}
+    logits = 4 * B * (S - 1) * cfg.vocab
+    out["reckoning"] = {"layer_params": layer, "outer_params": outer, "state_bytes_by_layers": reck,
+                        "logits_f32_bytes": logits, "params": n, "state_bytes": 16 * n}
+    log(f"reduced: phi4-mini-3.8b training depth {full.n_layers} -> {TRAIN_LAYERS} layers, batch {B_full} -> {B} "
+        f"(train_4k, seq {S}); width, vocabulary and dtypes as the config's (bf16 compute, float32 master weights "
+        f"and moments); no checkpoint at this width (weights and moments ~{16 * n * 3 / 4 / 1e9:.1f} GB a save)")
+    log(f"[train] (a) reckoning: {layer / 1e6:.3f} M parameters a layer, {outer / 1e9:.4f} B outside the layers; "
+        f"16 bytes a parameter: {json.dumps({k: round(v / 1e9, 2) for k, v in reck.items()})} GB at 32/24/16 "
+        f"layers; float32 logits [{B}, {S - 1}, {cfg.vocab}] {logits / 1e9:.3f} GB; {mem_line()}")
+    total = TRAIN_STEPS + TRAIN_REPEAT
+    step, init = make_lm_trainer(cfg, lr=TRAIN_LR, total_steps=total, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init(torch.Generator(device="cuda").manual_seed(seed + 900))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    loader = StepLoader(make=partial(lm_batch, batch=B, seq=S, vocab=cfg.vocab), seed=seed)
+    tokens = B * (S - 1)
+    flops = lm_train_flops(cfg, n, tokens, S - 1, B)
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = loader.global_batch(i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks = iter(ev[1:])
+        t0 = time.perf_counter()
+        ev[0].record()
+        state, m = step(state, batch, mark=lambda _: next(marks).record())
+        ev[2].synchronize()
+        host_s = time.perf_counter() - t0
+        fb, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        step_s = (fb + opt_ms) / 1e3
+        rows.append({"step": i, "loss": float(m["loss"]), "fwd_bwd_ms": fb, "opt_ms": opt_ms, "host_s": host_s,
+                     "tokens_per_s": tokens / step_s, "flop_share": flops / step_s / PEAK_OPS["bfloat16"],
+                     "peak_bytes": torch.cuda.max_memory_allocated(), "state_bytes": 16 * n})
+        log(f"[train] (a) step {i}: {json.dumps(rows[-1])}")
+    peak = torch.cuda.max_memory_allocated()
+    b0 = loader.global_batch(0)
+    repeat, box = [], {}
+    for i in range(TRAIN_REPEAT - 1):
+        state, m = step(state, b0)
+        repeat.append(float(m["loss"]))
+    # the last repeated step under the profiler: where a step's time goes on the card
+    kernels = traced_kernels(lambda: box.update(out=step(state, b0)), 1)
+    state, m = box.pop("out")
+    repeat.append(float(m["loss"]))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    by_name: dict = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    out["traced"] = {"kernels": len(kernels), "device_ms": sum(t for t, _ in by_name.values()) if kernels else None,
+                     "top_kernels_ms_count": [[k[:90], t, c] for k, (t, c) in top]}
+    log(f"[train] (a) one step under torch.profiler: {json.dumps(out['traced'])}")
+    steady = rows[1:]
+    mean = lambda k: sum(r[k] for r in steady) / len(steady)
+    out.update(layers=TRAIN_LAYERS, seq=S, batch=B, tokens=tokens, model_flops=flops, steps=rows,
+               repeat_losses=repeat, peak_bytes=peak,
+               mean={k: mean(k) for k in ("fwd_bwd_ms", "opt_ms", "tokens_per_s", "flop_share")})
+    log(f"[train] (a) phi4-mini {TRAIN_LAYERS} layers ({n / 1e9:.4f} B parameters), steps 1-{TRAIN_STEPS - 1}: "
+        f"forward+backward {out['mean']['fwd_bwd_ms']:.3f} ms, optimizer {out['mean']['opt_ms']:.3f} ms, "
+        f"{out['mean']['tokens_per_s']:.1f} tokens/s, model FLOPs {flops / 1e12:.3f} T a step = "
+        f"{out['mean']['flop_share']:.4f} of the dense bf16 peak ({PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s, "
+        f"NVIDIA's H100 SXM data sheet); peak memory {peak / 1e9:.3f} GB against the state's "
+        f"{16 * n / 1e9:.3f} GB; {mem_line()}")
+    log(f"[train] (a) one batch {TRAIN_REPEAT} times: losses {json.dumps(repeat)}")
+    del state
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rows] + repeat
+    assert all(np.isfinite(losses)), losses
+    assert all(b < a for a, b in zip(repeat, repeat[1:])), f"the repeated batch's loss did not fall at every step: {repeat}"
+
+
+def train_supervisor(out: dict, seed: int) -> None:
+    """(b) TrainSupervisor at the reduced phi4 config on the card."""
+    import torch
+    from functools import partial
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import StepLoader, lm_batch
+    from repro_torch.distributed import FailureInjector, TrainSupervisor
+    from repro_torch.distributed.fault_tolerance import onto_devices_of
+    from repro_torch.launch.train import make_lm_trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = lm_archs.get("phi4-mini-3.8b", reduced=True)
+    step, init = make_lm_trainer(cfg, lr=1e-3, total_steps=SUP_STEPS, device="cuda")
+    loader = StepLoader(make=partial(lm_batch, batch=8, seq=cfg.max_seq, vocab=cfg.vocab), seed=seed)
+    work = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    runs = {}
+    try:
+        for tag, faults in (("clean", None), ("faulty", dict(SUP_FAILS))):
+            ck = CheckpointManager(work / tag, keep_n=2, async_save=True)
+            sup = TrainSupervisor(step_fn=lambda s, b, i: step(s, b), loader=loader, ckpt=ck, ckpt_every=SUP_EVERY)
+            state = init(torch.Generator(device="cuda").manual_seed(seed + 1000))
+            t0 = time.perf_counter()
+            final, stats = sup.run(state, SUP_STEPS, injector=FailureInjector(fail_at=faults) if faults else None)
+            torch.cuda.synchronize()
+            runs[tag] = (final, stats, ck)
+            out[tag] = {**stats, "s": time.perf_counter() - t0, "saves": ck.saves, "kept": ck.steps()}
+        clean, faulty = runs["clean"][0], runs["faulty"][0]
+        names = leaf_names(clean)
+        differ = [n for n, a, b in zip(names, tree_leaves(clean), tree_leaves(faulty)) if not torch.equal(a, b)]
+        devices = sorted({str(x.device) for x in tree_leaves(faulty)})
+        back, ck_step = runs["faulty"][2].restore()
+        placed = onto_devices_of(back, faulty)
+        round_trip = [n for n, a, b in zip(names, tree_leaves(placed), tree_leaves(faulty)) if not torch.equal(a, b)]
+        leaf = work / "faulty" / f"step_{SUP_STEPS:08d}" / "leaf_000000"
+        meta = json.loads((leaf / ".zarray").read_text())
+        chunk = leaf / ".".join(["0"] * len(meta["shape"]))
+        raw = np.fromfile(chunk, dtype=np.dtype(meta["dtype"])).reshape(meta["chunks"])[: meta["shape"][0]]
+        path = json.loads((leaf / ".zattrs").read_text())["path"]
+        raw_equal = bool(np.array_equal(raw, tree_leaves(faulty)[0].cpu().numpy()))
+        out.update(leaves=len(names), leaves_differing=differ, devices=devices, restored_step=ck_step,
+                   round_trip_differing=round_trip, raw_leaf={"path": path, "zarray": meta, "equal": raw_equal})
+        log(f"[train] (b) supervisor, reduced phi4 ({cfg.n_layers} layers, d_model {cfg.d_model}), {SUP_STEPS} steps, "
+            f"a checkpoint every {SUP_EVERY} (async), failures at {sorted(SUP_FAILS)}: clean {json.dumps(out['clean'])}; "
+            f"faulty {json.dumps(out['faulty'])}; final state on {devices}, {len(names) - len(differ)} of "
+            f"{len(names)} leaves bit-identical to the clean run's (differing {differ}); the step-{ck_step} "
+            f"checkpoint against the final state: {len(names) - len(round_trip)} leaves equal; "
+            f"{chunk.relative_to(work)} by numpy.fromfile and .zarray ({meta['dtype']}, shape {meta['shape']}) is "
+            f"{path}: equal {raw_equal}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert out["faulty"]["restarts"] == 2 and out["clean"]["restarts"] == 0, out
+    assert devices == ["cuda:0"], devices
+    assert not differ, f"the restarted run's leaves differ from the clean run's: {differ}"
+    assert ck_step == SUP_STEPS and not round_trip, (ck_step, round_trip)
+    assert raw_equal and path == "0/embed", path
+
+
+def gnn_case(name: str, cfg, loss_fn, make_batch, g, out: dict, *, against_cpu: bool = True) -> None:
+    """One GraphSAGE shape: step 0's loss and gradients on the card against
+    the CPU's (GNN_RTOL), then GNN_STEPS AdamW steps."""
+    import torch
+    from repro_torch.launch.cells import make_train_step, to_device, value_and_grad
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    params = G.init_params(cfg, g, device="cuda")
+    fn = lambda p, b: loss_fn(p, b, cfg)
+    part = {}
+    if against_cpu:
+        b0 = make_batch(0)
+        (lc, _), gc_ = value_and_grad(fn, params, to_device(b0, "cuda"))
+        (lp, _), gp = value_and_grad(fn, tree_map(lambda x: x.cpu(), params), to_device(b0, "cpu"))
+        part["loss_rel"] = abs(float(lc) - float(lp)) / abs(float(lp))
+        part["grad_rel"] = max(rel_max(a, b) for a, b in zip(tree_leaves(gc_), tree_leaves(gp)))
+        del gc_, gp, b0
+    opt = adamw(GNN_LR)
+    step = make_train_step(fn, opt)
+    st = opt.init(params)
+    losses, step_s, host_s = [], [], []
+    for i in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        b = make_batch(i)
+        t1 = time.perf_counter()
+        params, st, m = step(params, st, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        host_s.append(t1 - t0)
+        step_s.append(time.perf_counter() - t1)
+    part.update(losses=losses, step_s=step_s, batch_host_s=host_s, peak_bytes=torch.cuda.max_memory_allocated())
+    out[name] = part
+    log(f"[train] (c) {name} (d_in {cfg.d_in}, {cfg.n_classes} classes): {json.dumps(part)}")
+    assert all(np.isfinite(losses)), losses
+    if against_cpu:
+        assert part["loss_rel"] <= GNN_RTOL and part["grad_rel"] <= GNN_RTOL, part
+
+
+def train_gnn(out: dict, seed: int) -> None:
+    """(c) graphsage-reddit at each of its shapes."""
+    import torch
+    from repro_torch.configs import gnn_archs, shapes
+    from repro_torch.data import CSRGraph, batched_molecules, random_graph, sample_hops
+    from repro_torch.models import gnn as G
+
+    full = gnn_archs.get("graphsage-reddit")
+    gs = shapes.GNN_SHAPES
+    g = torch.Generator(device="cuda").manual_seed(seed + 1100)
+    # minibatch_lg: the full Reddit-sized graph on the host, sampled batches to the card
+    sh = gs["minibatch_lg"]
+    t0 = time.perf_counter()
+    graph = random_graph(seed, n_nodes=sh["n_nodes"], n_edges=sh["n_edges"], d_feat=sh["d_feat"],
+                         n_classes=sh["n_classes"])
+    t1 = time.perf_counter()
+    csr = CSRGraph(sh["n_nodes"], graph["edge_src"], graph["edge_dst"])
+    t2 = time.perf_counter()
+    out["minibatch_lg_host"] = {"random_graph_s": t1 - t0, "csr_s": t2 - t1}
+    log(f"[train] (c) minibatch_lg: random_graph of {sh['n_nodes']} nodes, {sh['n_edges']} edges in {t1 - t0:.1f} s, "
+        f"CSRGraph in {t2 - t1:.1f} s (host)")
+    feats, labels = graph["feats"], graph["labels"]
+    del graph
+
+    def sampled(i):
+        rng = np.random.default_rng([seed, i])
+        seeds = rng.choice(sh["n_nodes"], sh["batch_nodes"], replace=False)
+        return {"hops": sample_hops(csr, feats, seeds, sh["fanouts"], rng), "labels": labels[seeds]}
+
+    cfg = replace(full, d_in=sh["d_feat"], n_classes=sh["n_classes"], fanouts=sh["fanouts"])
+    gnn_case("minibatch_lg", cfg, G.gnn_loss_sampled, sampled, g, out)
+    del csr, feats, labels
+    # full_graph_sm: Cora's shape, full batch
+    sh = gs["full_graph_sm"]
+    cora = random_graph(seed, n_nodes=sh["n_nodes"], n_edges=sh["n_edges"], d_feat=sh["d_feat"],
+                        n_classes=sh["n_classes"])
+    gnn_case("full_graph_sm", replace(full, d_in=sh["d_feat"], n_classes=sh["n_classes"]), G.gnn_loss_full,
+             lambda i: cora, g, out)
+    # molecule: 128 graphs of 30 nodes a batch
+    sh = gs["molecule"]
+    mol = lambda i: batched_molecules(seed, i, batch=sh["batch"], n_nodes=sh["n_nodes"], n_edges=sh["n_edges"],
+                                      d_feat=sh["d_feat"], n_classes=sh["n_classes"])
+    gnn_case("molecule", replace(full, d_in=sh["d_feat"], n_classes=sh["n_classes"]), G.gnn_loss_graphs, mol, g, out)
+    # ogb_products full batch: gather_scatter holds one chunk of messages at a time (the whole
+    # [E, 128] float32 is 31.7 GB, and its gradient as much again: held whole, the backward pass
+    # runs out of the H100's memory, asking 29.5 GiB more with 35.4 allocated and 20.4 cached)
+    sh = gs["ogb_products"]
+    E, N, H = sh["n_edges"], sh["n_nodes"], full.d_hidden
+    chunk = 4 * G.EDGE_CHUNK * H
+    reckoned = 2 * chunk + 4 * N * (sh["d_feat"] + 6 * H) + 8 * E
+    total = torch.cuda.mem_get_info()[1]
+    out["ogb_products_reckoned_bytes"] = reckoned
+    log(f"[train] (c) ogb_products reckoned peak: a chunk of {G.EDGE_CHUNK} messages [.., {H}] float32 "
+        f"{chunk / 1e9:.2f} GB and its gradient (whole: {4 * E * H / 1e9:.2f} GB), features and activations "
+        f"{4 * N * (sh['d_feat'] + 6 * H) / 1e9:.2f} GB, edges {8 * E / 1e9:.2f} GB: {reckoned / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f} GB")
+    if reckoned <= 0.6 * total:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prod = random_graph(seed, n_nodes=N, n_edges=E, d_feat=sh["d_feat"], n_classes=sh["n_classes"])
+        out["ogb_products_host_s"] = time.perf_counter() - t0
+        dev = {k: torch.as_tensor(v, device="cuda") for k, v in prod.items()}
+        del prod
+        gnn_case("ogb_products", replace(full, d_in=sh["d_feat"], n_classes=sh["n_classes"]), G.gnn_loss_full,
+                 lambda i: dev, g, out, against_cpu=False)
+        del dev
+    torch.cuda.empty_cache()
+
+
+def train_recsys(out: dict, seed: int) -> None:
+    """(d) the four recsys architectures at train_batch, full vocabularies."""
+    import torch
+    from repro_torch.configs import recsys_archs, shapes
+    from repro_torch.data.synthetic import ctr_batch
+    from repro_torch.launch.cells import make_train_step, to_device, value_and_grad
+    from repro_torch.models import recsys as R
+    from repro_torch.models.base import param_count
+    from repro_torch.optim import adamw
+
+    rows = shapes.RECSYS_SHAPES["train_batch"]["batch"]
+    for name in recsys_archs.ARCHS:
+        cfg = recsys_archs.get(name)
+        kw = dict(field_vocabs=cfg.field_vocabs, n_dense=cfg.n_dense, seq_len=cfg.seq_len, seq_fields=cfg.seq_fields)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1200)
+        params = R.init_params(cfg, g, device="cuda")
+        opt = adamw(RECSYS_LR)
+        step = make_train_step(lambda p, b: R.recsys_loss(p, b, cfg), opt)
+        part = {"params": param_count(R.param_specs(cfg))}
+        # step 0 at a slice of the batch, the card against the CPU.  float32: the loss, and each
+        # leaf's gradient by cosine (a ReLU whose input the two devices round to either side of
+        # 0 drops one row's term: up to ~1% of a leaf's largest entry, seen on the H100).
+        # float64 copies of the parameters (pre-activations 1e-16 apart, so no such flip; the
+        # loss's own gradient stays float32, bce_logits): the gradients within RTOL of each
+        # leaf's largest, and the step's update of every entry within its bound from them
+        sl = {k: v[:RECSYS_SLICE] for k, v in ctr_batch(seed, 0, batch=rows, **kw).items()}
+        fn = lambda p, b: R.recsys_loss(p, b, cfg)
+        cpu = {k: v.cpu() for k, v in params.items()}
+        (lc, _), gc_ = value_and_grad(fn, params, to_device(sl, "cuda"))
+        (lp, _), gp = value_and_grad(fn, cpu, to_device(sl, "cpu"))
+        part["slice_loss_rel"] = abs(float(lc) - float(lp)) / abs(float(lp))
+        part["slice_grad_cos_min"] = min(cosine(gc_[k], gp[k]) for k in params)
+        part["slice_grad_rel_f32"] = max(rel_max(gc_[k], gp[k]) for k in params)
+        del gc_, gp
+        p64 = {k: v.double() for k, v in params.items()}
+        c64 = {k: v.double() for k, v in cpu.items()}
+        del cpu
+        (_, _), gc_ = value_and_grad(fn, p64, to_device(sl, "cuda"))
+        (_, _), gp = value_and_grad(fn, c64, to_device(sl, "cpu"))
+        part["slice_grad_rel_f64"] = max(rel_max(gc_[k], gp[k]) for k in params)
+        dg = {k: float((gc_[k].cpu() - gp[k]).abs().max()) for k in params}
+        del gc_, gp
+        u = {}
+        for tag, p in (("card", p64), ("cpu", c64)):
+            before = {k: v.clone() for k, v in p.items()}
+            p, _, _ = step(p, opt.init(p), sl)
+            u[tag] = {k: (p[k] - before[k]).cpu() for k in p}
+            del before, p
+        du = {k: float((u["card"][k] - u["cpu"][k]).abs().max()) for k in params}
+        # AdamW's first update is lr * g / (|g| + eps) (+ the decay, the same on both): it moves
+        # by at most lr / eps times the gradients' difference, plus rounding
+        over = {k: du[k] / (RECSYS_LR * (dg[k] / ADAMW_EPS + 1e-6)) for k in params}
+        part["slice_update_max_abs_f64"] = max(du.values())
+        part["slice_update_over_bound"] = max(over.values())
+        del p64, c64, u
+        st = opt.init(params)
+        losses, step_s = [], []
+        for i in range(RECSYS_STEPS):
+            b = ctr_batch(seed, i, batch=rows, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, st, m = step(params, st, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        part.update(losses=losses, step_s=step_s)
+        out[name] = part
+        log(f"[train] (d) {name} (d={cfg.embed_dim}), batch {rows}: {json.dumps(part)}")
+        del params, st
+        torch.cuda.empty_cache()
+        assert all(np.isfinite(losses)), losses
+        assert part["slice_loss_rel"] <= 1e-6 and part["slice_grad_cos_min"] >= RECSYS_GRAD_COS, part
+        assert part["slice_grad_rel_f64"] <= RTOL and part["slice_update_over_bound"] <= 1.0, part
+
+
+def phase_train(res: dict, seed: int) -> None:
+    """[train]: the checks at 2 layers, then (a)-(d), each with the kernel
+    launch counters zeroed before it and read after (no kernel lies on a
+    training path: each must read 0)."""
+    import torch
+
+    out = res["train"] = {"launches": {}}
+    parts = (("checks", train_checks), ("lm", train_lm), ("supervisor", train_supervisor),
+             ("gnn", train_gnn), ("recsys", train_recsys))
+    for name, part in parts:
+        out[name] = {}
+        reset_all_launches()
+        t0 = time.perf_counter()
+        part(out[name], seed)
+        torch.cuda.synchronize()
+        out[name]["part_s"] = time.perf_counter() - t0
+        out["launches"][name] = all_launches()
+        log(f"[train] {name} done in {out[name]['part_s']:.1f} s; kernel launches {out['launches'][name]}; "
+            f"{mem_line()}")
+        torch.cuda.empty_cache()
+        assert not any(out["launches"][name].values()), (name, out["launches"][name])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-items", type=int, default=200_000)
@@ -2884,7 +3403,10 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     torch.cuda.empty_cache()
     log(f"[long500k] phase done at {time.time() - t_all:.1f} s; {mem_line()}")
     phase_moe(res, args.seed)
-    log(f"[moe] phase done at {time.time() - t_all:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[moe] phase done at {time.time() - t_all:.1f} s; {mem_line()}")
+    phase_train(res, args.seed)
+    log(f"[train] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
@@ -2893,7 +3415,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     scout, maverick = res["moe"]["llama4-scout-17b-a16e"], res["moe"]["llama4-maverick-400b-a17b"]
     lm_paths = lambda name: {"long500k_launches": res["long500k"]["launches"][name],
                              "moe_launches": {"llama4-scout": scout["launches"][name],
-                                              "llama4-maverick": maverick["launches"][name]}}
+                                              "llama4-maverick": maverick["launches"][name]},
+                             "train_launches": {p: v[name] for p, v in res["train"]["launches"].items()}}
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",

@@ -5,10 +5,11 @@ Sources: phi4-mini [arXiv:2412.08905], mistral-large
 [hf:mistralai/Mistral-Large-Instruct-2407], qwen2-7b [arXiv:2407.10671],
 llama4 maverick/scout [hf:meta-llama/Llama-4-*].  Maverick alternates dense
 and MoE layers (``moe_every=2``: 128 experts x 48 layers, ~400B in all,
-17B active); scout is MoE in every layer.  The reference's distribution
-fields (``fsdp_axis``, ``microbatches``, ``remat``, ``pure_fsdp``) are not
-part of the port's ``LMConfig``: one card runs no mesh (ROADMAP Queue 1
-#13), and mistral-large's 123B parameters need four cards.
+17B active); scout is MoE in every layer.  Of the reference's training
+fields the port's ``LMConfig`` has the two of one device, ``remat`` and
+``microbatches``; the distribution fields (``fsdp_axis``, ``pure_fsdp``)
+wait for a mesh (ROADMAP Queue 1 #13), as mistral-large's 123B parameters
+wait for four cards.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def mistral_large_full() -> LMConfig:
     return LMConfig(
         name="mistral-large-123b", n_layers=88, d_model=12288, n_heads=96,
         n_kv_heads=8, d_ff=28672, vocab=32768, d_head=128,
-        param_dtype=torch.bfloat16, retrieval=_RETR,
+        param_dtype=torch.bfloat16, microbatches=2, retrieval=_RETR,
     )
 
 

@@ -1,16 +1,25 @@
-"""Synthetic data generators, deterministic in their seed (the port's copies
-of the reference's ``data/synthetic.py``: ``clustered_vectors``, the ANN
-benchmark data, and ``ctr_batch``, the recsys batches, on the same numpy
-streams, so that both packages get bit-identical data)."""
+"""Synthetic data generators, deterministic in their seed (the port's copy
+of the reference's ``data/synthetic.py``, on the same numpy streams in the
+same draw order, so that both packages get bit-identical data).
+
+Every batch is a pure function of (seed, step, shard), never of iteration
+history: a restart from a checkpoint replays the exact token and example
+stream (the fault-tolerance contract in ``distributed/fault_tolerance.py``).
+"""
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["clustered_vectors", "ctr_batch"]
+__all__ = ["lm_batch", "ctr_batch", "clustered_vectors", "random_graph", "batched_molecules"]
 
 
 def _rng(seed: int, step: int, shard: int = 0):
     return np.random.default_rng(np.random.SeedSequence([seed, step, shard]))
+
+
+def lm_batch(seed: int, step: int, *, batch: int, seq: int, vocab: int, shard: int = 0):
+    r = _rng(seed, step, shard)
+    return {"tokens": r.integers(0, vocab, size=(batch, seq), dtype=np.int32)}
 
 
 def ctr_batch(
@@ -66,3 +75,27 @@ def clustered_vectors(
     which = r.integers(0, n_clusters, size=n)
     x = centers[which] + spread * r.normal(size=(n, dim)).astype(np.float32)
     return x.astype(np.float32), which
+
+
+def random_graph(seed: int, *, n_nodes: int, n_edges: int, d_feat: int, n_classes: int):
+    r = np.random.default_rng(seed)
+    src = r.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    dst = r.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    feats = r.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    labels = r.integers(0, n_classes, size=n_nodes).astype(np.int32)
+    return {"feats": feats, "edge_src": src, "edge_dst": dst, "labels": labels}
+
+
+def batched_molecules(
+    seed: int, step: int, *, batch: int, n_nodes: int, n_edges: int, d_feat: int, n_classes: int
+):
+    r = _rng(seed, step)
+    return {
+        "feats": r.normal(size=(batch, n_nodes, d_feat)).astype(np.float32),
+        "edge_src": r.integers(0, n_nodes, size=(batch, n_edges)).astype(np.int32),
+        "edge_dst": r.integers(0, n_nodes, size=(batch, n_edges)).astype(np.int32),
+        "node_mask": (
+            np.arange(n_nodes)[None, :] < r.integers(n_nodes // 2, n_nodes + 1, size=(batch, 1))
+        ).astype(np.float32),
+        "labels": r.integers(0, n_classes, size=batch).astype(np.int32),
+    }

@@ -1,12 +1,14 @@
-"""Serving layer of the port: the request scheduler and the server
-(counterparts of the reference's ``launch/scheduler.py`` and
-``launch/serve.py``).  Lazy, like the reference's package: importing it
-loads neither module until a name is asked for."""
+"""Launch layer of the port: the train step (``cells.make_train_step``),
+the trainer (``train.py``), the request scheduler and the server
+(counterparts of the reference's ``launch/cells.py``, ``train.py``,
+``scheduler.py`` and ``serve.py``).  Lazy, like the reference's package:
+importing it loads no module until a name is asked for."""
 from __future__ import annotations
 
 import importlib
 
 _EXPORTS = {
+    "make_train_step": "cells",
     "Server": "serve",
     "ServeStats": "serve",
     "LatencyRing": "serve",

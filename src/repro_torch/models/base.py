@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "init_params", "param_count", "params_from_jax"]
 
@@ -30,25 +31,6 @@ class ParamSpec:
     init: str = "fan_in"              # fan_in | normal | zeros | ones | embed
     scale: float | None = None        # stddev override
     fan_in_axis: int = -2             # axis treated as fan-in for scaling
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device, dtype) -> torch.Tensor:
@@ -75,31 +57,35 @@ def init_params(spec_tree, generator: torch.Generator, *, device="cuda", dtype=N
     ``generator`` (which must live on that device), leaf by leaf in tree
     order, and store it as ``dtype`` (default: the spec's own dtype)."""
     dev = resolve_device(device)
-    return _map(lambda s: _init_leaf(s, generator, dev, dtype), spec_tree)
+    return tree_map(lambda s: _init_leaf(s, generator, dev, dtype), spec_tree)
 
 
 def param_count(spec_tree) -> int:
-    return sum(int(np.prod(s.shape)) for s in _leaves(spec_tree))
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(spec_tree))
 
 
-def params_from_jax(tree, cfg, *, device="cuda"):
+def params_from_jax(tree, cfg, *, device="cuda", dtype=None):
     """A parameter tree the reference made (``repro.models.base.init_params``
     of a ``param_specs``; arrays that numpy can read) -> the port's, by the
-    config's type.  A recsys tree (``RecSysConfig``) is one flat dict: every
-    array becomes a float32 tensor on ``device``.  An LM tree: the stacked
+    config's type.  A recsys or GNN tree keeps its structure: every array
+    becomes a float32 tensor on ``device``.  An LM tree: the stacked
     ``[L, ...]`` layer arrays (dense or MoE: ``router``, ``we_*``) become a
     list of ``cfg.n_layers`` per-layer dicts; with ``moe_every=2`` the
     reference's ``{"dense": [L/2, ...], "moe": [L/2, ...]}`` blocks become
-    each block's dense layer, then its MoE layer.  Every weight is cast once
-    to ``cfg.dtype`` (what the reference's per-use casts give)."""
-    from .recsys import RecSysConfig
+    each block's dense layer, then its MoE layer.  Every LM array is cast
+    once to ``dtype``: ``cfg.dtype`` by default (serving: what the
+    reference's per-use casts give), ``cfg.param_dtype`` for training's
+    master weights.  Any tree of the parameters' shape converts alike, so
+    the reference's AdamW moments (``mu``, ``nu``) carry across too."""
+    from .transformer import LMConfig
 
     dev = resolve_device(device)
-    if isinstance(cfg, RecSysConfig):
-        return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev) for k, v in tree.items()}
+    if not isinstance(cfg, LMConfig):
+        return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev), tree)
+    dtype = dtype or cfg.dtype
 
     def conv(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
     def unstack(stacked, n):
         return [{k: conv(np.asarray(v)[i]) for k, v in stacked.items()} for i in range(n)]

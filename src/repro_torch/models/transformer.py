@@ -13,14 +13,22 @@ Parameters: ``{"embed": [V, D], "layers": [per-layer dict] * n_layers,
 "final_norm": [D], "lm_head": [D, V]}``; the reference stacks the layers
 as ``[L, ...]`` arrays (with ``moe_every=2`` as ``{"dense", "moe"}``
 stacks of ``L / 2`` blocks) and scans them, the port keeps them apart and
-loops, a block's dense layer before its MoE layer.  Every weight is held in
-``cfg.dtype``, cast once when it is made or loaded (``init_params``,
-``base.params_from_jax``): numerically what the reference's
-``_cast_layers`` and per-use ``.astype(cfg.dtype)`` give, at half the
-memory of float32 weights in bf16.
+loops, a block's dense layer before its MoE layer.  Every entry point
+casts the weights to ``cfg.dtype`` where it uses them, inside the autograd
+graph, as the reference's ``_cast_layers`` and per-use ``.astype`` do: a
+layer's weights on entry to the layer, the embedding rows after the
+lookup, ``final_norm`` and ``lm_head`` at their use.  Training holds
+float32 master weights (``init_params(..., dtype=cfg.param_dtype)``);
+serving holds them already in ``cfg.dtype`` (the default of
+``init_params`` and ``base.params_from_jax``), where each cast is a no-op.
 
-Not ported yet, each raising ``NotImplementedError``: sharding rules
-(ROADMAP Queue 1 #13) and ``lm_loss`` (training, Queue 1 #12).
+Training: ``lm_loss`` (next-token cross entropy plus the MoE aux loss)
+through torch autograd; with ``cfg.remat`` each layer is a
+``torch.utils.checkpoint`` region (the reference's ``jax.checkpoint`` on
+its scan body), and chunked attention checkpoints its query blocks.
+
+Not ported yet, raising ``NotImplementedError``: sharding rules (ROADMAP
+Queue 1 #13).
 """
 from __future__ import annotations
 
@@ -29,12 +37,14 @@ from functools import partial
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import attention
 from .base import ParamSpec as P
 from .base import init_params as _init_params
-from .layers import rms_norm, rope, swiglu
+from .layers import rms_norm, rope, softmax_xent, swiglu
 from .moe import MoEConfig, moe_ffn
 from .retrieval_attention import (
     ClusteredKVCache,
@@ -44,8 +54,8 @@ from .retrieval_attention import (
 )
 
 __all__ = [
-    "LMConfig", "ShardingRules", "KVCache", "param_specs", "init_params", "forward", "lm_loss",
-    "prefill", "decode_step", "retrieval_decode_step", "init_cache",
+    "LMConfig", "ShardingRules", "KVCache", "param_specs", "decay_mask", "stacked_groups", "init_params",
+    "forward", "lm_loss", "prefill", "decode_step", "retrieval_decode_step", "init_cache",
 ]
 
 
@@ -79,6 +89,8 @@ class LMConfig:
     retrieval: RetrievalAttnConfig = field(default_factory=RetrievalAttnConfig)
     attn_impl: str = "chunked"      # full | chunked | flash
     attn_chunk: int = 1024
+    remat: bool = True              # training: recompute each layer in the backward pass
+    microbatches: int = 1           # gradient-accumulation chunks per step
 
     @property
     def q_dim(self) -> int:
@@ -152,9 +164,31 @@ def param_specs(cfg: LMConfig):
     }
 
 
-def init_params(cfg: LMConfig, generator: torch.Generator, *, device="cuda"):
-    """Random weights from ``generator`` on ``device``, stored in ``cfg.dtype``."""
-    return _init_params(param_specs(cfg), generator, device=device, dtype=cfg.dtype)
+def decay_mask(cfg: LMConfig) -> dict:
+    """The leaves AdamW decays, as it decays the reference's: those the
+    reference holds with ndim >= 2.  It stacks each layer's leaves as
+    ``[L, ...]``, so it decays the layers' norm gains and biases too; of the
+    1-D leaves only ``final_norm`` is left undecayed."""
+    return {"embed": True, "final_norm": False, "lm_head": True,
+            "layers": [{k: True for k in lp} for lp in param_specs(cfg)["layers"]]}
+
+
+def stacked_groups(cfg: LMConfig) -> dict:
+    """Each leaf's key in the reference's stacked layout: the per-layer
+    leaves of one weight share the key of the reference's ``[L, ...]`` leaf
+    (with ``moe_every=2``, of its "dense" or its "moe" stack).  Gradient
+    compression scales each such group as the reference scales its leaf."""
+    out = {k: k for k in ("embed", "final_norm", "lm_head")}
+    out["layers"] = [{k: f"{('moe' if m else 'dense') if _is_block(cfg) else 'layers'}/{k}" for k in lp}
+                     for m, lp in zip(_moe_layers(cfg), param_specs(cfg)["layers"])]
+    return out
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator, *, device="cuda", dtype=None):
+    """Random weights from ``generator`` on ``device``, stored in ``dtype``:
+    ``cfg.dtype`` by default (serving), ``cfg.param_dtype`` for training's
+    master weights."""
+    return _init_params(param_specs(cfg), generator, device=device, dtype=dtype or cfg.dtype)
 
 
 # ----------------------------------------------------------------- forward
@@ -184,14 +218,20 @@ def _ffn(h2, lp, cfg: LMConfig):
     return y.reshape(B, S, D), aux
 
 
+def _cast(lp: dict, dtype) -> dict:
+    return {k: w.to(dtype) for k, w in lp.items()}
+
+
 def _layer(x, lp, cfg: LMConfig, positions):
     """One transformer layer; also returns its k, v [B, Hkv, S, dh] and
     its aux loss."""
     B, S, _ = x.shape
+    lp = _cast(lp, x.dtype)
     h = rms_norm(x, lp["attn_norm"])
     q, k, v = _qkv(h, lp, cfg, positions)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
-    o = attention(q.transpose(1, 2), k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    o = attention(q.transpose(1, 2), k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                  remat=cfg.remat)
     o = o.transpose(1, 2).reshape(B, S, cfg.q_dim).to(x.dtype)    # [B, S, Hq*dh]
     x = x + o @ lp["wo"]
     h2 = rms_norm(x, lp["ffn_norm"])
@@ -200,30 +240,49 @@ def _layer(x, lp, cfg: LMConfig, positions):
 
 
 def _embed(params, tokens, cfg: LMConfig):
-    return params["embed"][tokens].to(cfg.dtype)
+    """The rows of ``tokens``, cast after the lookup (``F.embedding``: its
+    backward on CUDA sorts the ids and sums each row's repeats in a fixed
+    order, so a training step replays bit for bit)."""
+    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
+
+
+def _head(params, x):
+    """Final norm and the vocabulary projection: logits in float32."""
+    x = rms_norm(x, params["final_norm"].to(x.dtype))
+    return (x @ params["lm_head"].to(x.dtype)).to(torch.float32)
+
+
+def _train_layer(x, lp, cfg: LMConfig, positions):
+    x, _, _, aux = _layer(x, lp, cfg, positions)
+    return x, aux
 
 
 def forward(params, tokens, cfg: LMConfig, rules: ShardingRules | None = None):
     """tokens [B, S] int -> (logits [B, S, V] float32, the layers' summed
-    MoE aux loss, float32)."""
+    MoE aux loss, float32).  Under grad with ``cfg.remat`` each layer is a
+    checkpoint region: the backward pass recomputes it from its input."""
     _check(rules)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x, _, _, a = _layer(x, lp, cfg, positions)
+        if ckpt:
+            x, a = checkpoint(_train_layer, x, lp, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _train_layer(x, lp, cfg, positions)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"])
-    logits = (x @ params["lm_head"]).to(torch.float32)
-    return logits, aux
+    return _head(params, x), aux
 
 
 def lm_loss(params, batch, cfg: LMConfig, rules: ShardingRules | None = None):
-    raise NotImplementedError(
-        "lm_loss and training are not ported yet: the reference trains through chunked attention, "
-        "so the port's needs torch autograd through _chunked (ROADMAP Queue 1 #12)"
-    )
+    """batch: {"tokens": [B, S]} -> (next-token cross entropy + MoE aux,
+    {"xent", "aux"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens[:, :-1], cfg, rules)
+    xent = softmax_xent(logits, tokens[:, 1:])
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving
@@ -261,8 +320,7 @@ def prefill(params, tokens, cfg: LMConfig, rules: ShardingRules | None = None, *
         x, k, v, _ = _layer(x, lp, cfg, positions)
         kall[i, :, :, :S] = k
         vall[i, :, :, :S] = v
-    x = rms_norm(x, params["final_norm"])
-    logits = (x[:, -1] @ params["lm_head"]).to(torch.float32)
+    logits = _head(params, x[:, -1])
     return logits, KVCache(k=kall, v=vall, pos=S)
 
 
@@ -271,6 +329,7 @@ def _decode_layer(x, lp, cfg: LMConfig, positions, attend):
     [B, H, dh]) writes k and v into the layer's cache and returns the
     attention output [B, Hq, dh] in float32."""
     B = x.shape[0]
+    lp = _cast(lp, x.dtype)
     h = rms_norm(x, lp["attn_norm"])
     q, k, v = _qkv(h, lp, cfg, positions)                           # [B, 1, H, dh]
     o = attend(q[:, 0], k[:, 0], v[:, 0])
@@ -305,8 +364,7 @@ def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, rules: ShardingRu
     for i, lp in enumerate(params["layers"]):
         x = _decode_layer(x, lp, cfg, positions, partial(_attend_cache, kc=cache.k[i], vc=cache.v[i],
                                                          pos=pos, kv_lens=kv_lens))
-    x = rms_norm(x, params["final_norm"])
-    logits = (x[:, 0] @ params["lm_head"]).to(torch.float32)
+    logits = _head(params, x[:, 0])
     return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)
 
 
@@ -336,6 +394,5 @@ def retrieval_decode_step(params, cache: ClusteredKVCache, tokens, cfg: LMConfig
     for i, lp in enumerate(params["layers"]):
         x = _decode_layer(x, lp, cfg, positions, partial(_attend_retrieval, kc=cache.k[i], vc=cache.v[i],
                                                          cent=cache.centroids[i], pos=pos, cfg=cfg))
-    x = rms_norm(x, params["final_norm"])
-    logits = (x[:, 0] @ params["lm_head"]).to(torch.float32)
+    logits = _head(params, x[:, 0])
     return logits, ClusteredKVCache(k=cache.k, v=cache.v, centroids=cache.centroids, pos=pos + 1)

@@ -43,7 +43,8 @@ def test_importing_the_port_loads_neither():
         "repro_torch.kernels._build, repro_torch.configs.ecpfs_paper, repro_torch.data.synthetic, "
         "repro_torch.models, repro_torch.models.transformer, repro_torch.kernels.flash_attention, "
         "repro_torch.configs.lm_archs, repro_torch.configs.shapes, repro_torch.core.legacy, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.launch.train, repro_torch.optim, repro_torch.checkpoint, "
+        "repro_torch.distributed, repro_torch.models.gnn, repro_torch.configs, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )
