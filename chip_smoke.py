@@ -183,6 +183,26 @@ Phases, none of whose failures is caught:
    architectures at ``train_batch`` (65536 rows, full vocabularies): step
    0's updated parameters on the card against the CPU's at a 4096-row
    slice, then 3 AdamW steps through ``make_train_step``.
+10. cells: the 40 (arch x shape) cells of ``launch/cells.py``.  Their dry
+   run (``launch/dryrun.py``: the traced peak and FLOPs on fake tensors)
+   runs in a child process started with the smoke.  First the custom ops'
+   cost a call (each kernel's wrapper against its launching body, in
+   turns).  (a) The 40 cells reduced, one step each on the card and on the
+   CPU from the same ``example_inputs`` (drawn on the CPU and copied),
+   held within the CELL_* tolerances: finite outputs, loss > 0, step 1,
+   parameters moved.  (b) The 20 GraphSAGE and recsys cells at their
+   shapes, uncut, one step each.  (c) qwen2-7b at full width and depth:
+   ``prefill_32k`` at batch 1 through chunked attention and again with
+   ``attn_impl="flash"`` (28 wgmma launches, a GQA group of 7; logits held
+   to the chunked run's within LOGIT_REL_TOL and ARGMAX_GAP),
+   ``decode_32k`` at the dry run's fit batch, ``long_500k``; then
+   phi4-mini's ``decode_32k`` at its fit batch.  (d) phi4-mini's prefill,
+   train and long_500k, which [lm], [train] and [long500k] ran: their
+   traces at batch 1 beside those phases' peaks.  Every cell run at full
+   size prints its traced peak beside ``torch.cuda.max_memory_allocated()``
+   (reset once its inputs exist) and their ratio; the launches of each part
+   are counted from 0 (``distance_topk`` once a retrieval cell, the wgmma
+   flash kernel once a qwen2 layer).
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Distances agree within 1e-4 relative:
@@ -366,6 +386,29 @@ RECSYS_LR = 1e-3
 RECSYS_SLICE = 4096
 RECSYS_GRAD_COS = 0.999
 ADAMW_EPS = 1e-8
+# [cells]: the 40 reduced cells on the card against the CPU (float32, the
+# reduced configs' dtype; sums in another order): logits, caches, serve
+# probabilities and retrieval scores within CELL_ATOL; a train step's loss
+# within CELL_LOSS_RTOL; its first AdamW moment mu = 0.1 g within CELL_MU_ATOL
+# + CELL_MU_RTOL |mu|.  Parameters after the step within CELL_P_ATOL +
+# CELL_P_RTOL |p|, except where |g| < CELL_TINY_GRAD: AdamW's first update is
+# about lr * sign(g), so a gradient that small that rounds to the other
+# sign on the other device moves an entry by up to 2 lr (the first step's
+# lr: 1.5e-6 for the LM schedule, 3e-3 GraphSAGE, 1e-3 recsys).
+CELL_ATOL = 1e-4
+CELL_LOSS_RTOL = 1e-5
+CELL_MU_ATOL, CELL_MU_RTOL = 1e-6, 1e-3
+CELL_P_ATOL, CELL_P_RTOL = 1e-6, 1e-5
+CELL_TINY_GRAD = 1e-6
+CELL_LR1 = {"lm": 3e-4 / 200, "gnn": 3e-3, "recsys": 1e-3}
+# the LM cells [cells] runs at full width (arch, shape, batch: None is the
+# dry run's fit_batch) and the ones earlier phases ran, traced at the batch
+# they ran (phi4-mini's prefill in [lm], train in [train], long_500k in
+# [long500k])
+CELL_LM_RUNS = (("qwen2-7b", "prefill_32k", 1), ("qwen2-7b", "decode_32k", None), ("qwen2-7b", "long_500k", 1),
+                ("phi4-mini-3.8b", "decode_32k", None))
+CELL_LM_EARLIER = (("phi4-mini-3.8b", "prefill_32k", 1), ("phi4-mini-3.8b", "train_4k", 1),
+                   ("phi4-mini-3.8b", "long_500k", 1))
 
 
 def log(*a) -> None:
@@ -3304,6 +3347,327 @@ def phase_train(res: dict, seed: int) -> None:
         assert not any(out["launches"][name].values()), (name, out["launches"][name])
 
 
+def _trace_key(arch: str, shape: str, batch) -> str:
+    return f"{arch}/{shape}/{batch}"
+
+
+def write_cell_traces(path: str) -> None:
+    """The dry run (``repro_torch.launch.dryrun``) of every cell [cells]
+    runs at full size or holds against an earlier phase's run, written as
+    JSON to ``path``.  Runs in a child process of its own from the start of
+    the smoke (``start_cell_traces``): fake tensors on the meta device, no
+    card, one CPU thread."""
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.configs import ALL_CELLS, get_arch
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.models import transformer as T
+
+    recs = {}
+    for arch, shape in ALL_CELLS:
+        if get_arch(arch)[0] != "lm":
+            recs[_trace_key(arch, shape, None)] = dryrun.run_cell(arch, shape, verbose=False)
+    for arch, shape, batch in CELL_LM_RUNS + CELL_LM_EARLIER:
+        recs[_trace_key(arch, shape, batch)] = dryrun.run_cell(arch, shape, batch=batch, verbose=False)
+    cell = cells.build_cell("qwen2-7b", "prefill_32k", mesh_axes=None, batch=1)
+    fcfg = replace(cell.meta["cfg"], attn_impl="flash")
+    flash = replace(cell, fn=lambda p, t: T.prefill(p, t, fcfg, max_seq=fcfg.max_seq))
+    recs[_trace_key("qwen2-7b", "prefill_32k/flash", 1)] = dryrun.trace_cell(flash)
+    Path(path).write_text(json.dumps(recs))
+
+
+def start_cell_traces(out: Path) -> subprocess.Popen:
+    """``write_cell_traces`` in a child process, started at once; its
+    output goes to ``out`` with the suffix ``.log``."""
+    code = "import sys, chip_smoke; chip_smoke.write_cell_traces(sys.argv[1])"
+    with open(out.with_suffix(".log"), "w") as f:
+        return subprocess.Popen([sys.executable, "-c", code, str(out)], cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def read_cell_traces(proc: subprocess.Popen, out: Path) -> dict:
+    proc.wait()
+    assert proc.returncode == 0, f"the dry run of the cells failed:\n{out.with_suffix('.log').read_text()}"
+    return json.loads(out.read_text())
+
+
+def to_cuda(args):
+    from repro_torch.launch import cells
+
+    return cells.map_args(lambda _n, t: t.to("cuda"), args)
+
+
+def held_train(what: str, family: str, card, cpu) -> dict:
+    """A train cell's step on the card held against the CPU's (rules at
+    CELL_ATOL's definition)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    (cp, cs, cm), (hp, hs, hm) = card, cpu
+    assert int(cs["step"]) == int(hs["step"]) == 1, what
+    loss, ref = float(cm["loss"]), float(hm["loss"])
+    assert loss > 0 and abs(loss - ref) <= CELL_LOSS_RTOL * abs(ref), (what, loss, ref)
+    mu_err = p_err = 0.0
+    lr = CELL_LR1[family]
+    for m, mr, p, pr in zip(tree_leaves(cs["mu"]), tree_leaves(hs["mu"]), tree_leaves(cp), tree_leaves(hp)):
+        m, p = m.cpu(), p.cpu()
+        d = (m - mr).abs()
+        assert bool((d <= CELL_MU_ATOL + CELL_MU_RTOL * mr.abs()).all()), (what, "mu", float(d.max()))
+        mu_err = max(mu_err, float(d.max()))
+        d = (p - pr).abs()
+        tol = CELL_P_ATOL + CELL_P_RTOL * pr.abs() + torch.where(mr.abs() / 0.1 < CELL_TINY_GRAD, 2 * lr, 0.0)
+        assert bool((d <= tol).all()), (what, "parameters", float(d.max()))
+        p_err = max(p_err, float(d.max()))
+    return {"loss": loss, "loss_cpu": ref, "mu_err": mu_err, "param_err": p_err}
+
+
+def held_close(what: str, a, b) -> float:
+    err = float((a.cpu().to(b.dtype) - b).abs().max()) if a.numel() else 0.0
+    assert err <= CELL_ATOL, (what, err)
+    return err
+
+
+def cells_reduced(out: dict, seed: int) -> None:
+    """(a) Every one of the 40 cells, reduced, one step on the card and one
+    on the CPU from the same ``example_inputs`` (parameters drawn once on
+    the CPU and copied)."""
+    import torch
+    from dataclasses import fields as dc_fields
+
+    from repro_torch.configs import ALL_CELLS
+    from repro_torch.launch import cells
+    from repro_torch.tree import tree_leaves
+
+    rows = {}
+    for arch, shape in ALL_CELLS:
+        cell = cells.build_cell(arch, shape, mesh_axes=None, reduced=True)
+        cpu_args = cells.example_inputs(cell, seed, device="cpu")
+        card_args = to_cuda(cpu_args)
+        before = [p.clone() for p in tree_leaves(cpu_args[0])]
+        with torch.no_grad():
+            card = cell.fn(*card_args)
+            torch.cuda.synchronize()
+            cpu = cell.fn(*cpu_args)
+        what = f"[cells] (a) {arch} {shape}"
+        for t in tree_leaves(card[:2] if cell.kind == "train" else card):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                assert bool(torch.isfinite(t).all()), what
+        if cell.kind == "train":
+            row = held_train(what, cell.meta["family"], card, cpu)
+            assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(cpu[0]), before)), f"{what}: nothing moved"
+        elif cell.kind == "serve":
+            row = {"err": held_close(what, card, cpu)}
+        elif cell.kind == "retrieval":
+            assert torch.equal(card[1].cpu(), cpu[1]), what
+            row = {"err": held_close(what, card[0], cpu[0])}
+        else:
+            (lc, cc), (lh, ch) = card, cpu
+            assert cc.pos == ch.pos, what
+            row = {"err": max([held_close(what, lc, lh)] + [held_close(f"{what} {f.name}", getattr(cc, f.name),
+                                                                       getattr(ch, f.name))
+                                                          for f in dc_fields(cc) if f.name != "pos"])}
+        rows[f"{arch}/{shape}"] = row
+    out["cells"] = rows
+    log(f"[cells] (a) 40 reduced cells, card against CPU: {json.dumps(rows)}")
+
+
+def run_full(cell, args) -> tuple:
+    """One step of ``cell`` on the card from ``args`` (live on the card):
+    (outputs, seconds, peak bytes counted from the args)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        o = cell.fn(*args)
+    torch.cuda.synchronize()
+    return o, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def traced_row(rec: dict, peak: int, peak_key: str = "peak_bytes") -> dict:
+    return {"peak_traced": rec[peak_key], "peak_measured": peak, "measured_over_traced": peak / rec[peak_key]}
+
+
+def cells_full(out: dict, seed: int, traces: dict) -> None:
+    """(b) The 20 GraphSAGE and recsys cells at their shapes, uncut: one
+    step each, beside the dry run's peak."""
+    import torch
+
+    from repro_torch.configs import ALL_CELLS, get_arch
+    from repro_torch.launch import cells
+    from repro_torch.tree import tree_leaves
+
+    rows = {}
+    for arch, shape in ALL_CELLS:
+        if get_arch(arch)[0] == "lm":
+            continue
+        rec = traces[_trace_key(arch, shape, None)]
+        assert rec["fits_h100"], (arch, shape, rec["peak_bytes"])
+        cell = cells.build_cell(arch, shape, mesh_axes=None)
+        t0 = time.perf_counter()
+        args = cells.example_inputs(cell, seed, device="cuda")
+        small = [(p, p.clone()) for p in tree_leaves(args[0]) if p.numel() < 1 << 24 and cell.kind == "train"]
+        inputs_s = time.perf_counter() - t0
+        o, dt, peak = run_full(cell, args)
+        what = f"[cells] (b) {arch} {shape}"
+        for t in tree_leaves(o[:2] if cell.kind == "train" else o):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                assert bool(torch.isfinite(t).all()), what
+        if cell.kind == "train":
+            assert int(o[1]["step"]) == 1 and float(o[2]["loss"]) > 0, what
+            assert any(not torch.equal(p, c) for p, c in small), f"{what}: nothing moved"
+        rows[f"{arch}/{shape}"] = {"kind": cell.kind, "inputs_s": inputs_s, "step_s": dt, **traced_row(rec, peak)}
+        log(f"{what}: {json.dumps(rows[f'{arch}/{shape}'])}")
+        del args, o, small
+        torch.cuda.empty_cache()
+    out["cells"] = rows
+
+
+def cells_lm(out: dict, seed: int, traces: dict) -> None:
+    """(c) qwen2-7b at full width and depth: prefill_32k at batch 1
+    (chunked, then flash: one wgmma launch a layer, logits held to the
+    chunked run's), decode_32k at the dry run's fit_batch, long_500k; then
+    phi4-mini's decode_32k at its fit_batch.  (d) phi4-mini's prefill,
+    train and long_500k ran in earlier phases: their traces beside those
+    phases' peaks."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import cells
+    from repro_torch.launch.dryrun import H100_FIT_BYTES
+    from repro_torch.models import transformer as T
+
+    rows = {}
+    for arch, shape, batch in CELL_LM_RUNS:
+        rec = traces[_trace_key(arch, shape, batch)]
+        b, key = (batch, "peak_bytes") if batch is not None else (rec["fit_batch"], "fit_peak_bytes")
+        assert b is not None and rec[key] <= H100_FIT_BYTES, (arch, shape, rec)
+        cell = cells.build_cell(arch, shape, mesh_axes=None, batch=b)
+        t0 = time.perf_counter()
+        args = cells.example_inputs(cell, seed, device="cuda")
+        torch.cuda.synchronize()
+        inputs_s = time.perf_counter() - t0
+        o, dt, peak = run_full(cell, args)
+        logits = o[0]
+        what = f"[cells] (c) {arch} {shape} batch {b}"
+        assert logits.shape == (b, cell.meta["cfg"].vocab) and bool(torch.isfinite(logits).all()), what
+        row = {"batch": b, "inputs_s": inputs_s, "step_s": dt, **traced_row(rec, peak, key)}
+        if cell.kind != "prefill":   # a second step: the first one's time holds the allocator's warm-up
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                o = cell.fn(args[0], o[1], args[2])
+            torch.cuda.synchronize()
+            row["step2_s"] = time.perf_counter() - t0
+        else:
+            chunked = logits.float().cpu()
+            del o
+            torch.cuda.empty_cache()
+            fcfg = replace(cell.meta["cfg"], attn_impl="flash")
+            frec = traces[_trace_key(arch, "prefill_32k/flash", batch)]
+            fops.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                o = T.prefill(args[0], args[1], fcfg, max_seq=fcfg.max_seq)
+            torch.cuda.synchronize()
+            fdt, fpeak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+            flash = o[0].float().cpu()
+            rel = logit_errs([flash], [chunked])[0]
+            flips = argmax_flips([flash], [chunked])
+            row["flash"] = {"step_s": fdt, "launches": dict(fops.launches), "logit_rel_err": rel,
+                            "argmax_flips": flips, **traced_row(frec, fpeak)}
+            assert fops.launches["flash_attention_wgmma"] == cell.meta["cfg"].n_layers, fops.launches
+            assert fops.launches["flash_attention"] == 0, fops.launches
+            assert rel < LOGIT_REL_TOL, f"{what}: flash and chunked logits differ by {rel}"
+            for i, gap in flips:
+                assert gap <= ARGMAX_GAP, f"{what}: the argmax moved between logits {gap} apart"
+        rows[f"{arch}/{shape}"] = row
+        log(f"{what}: {json.dumps(row)}; {mem_line()}")
+        del args, o, logits
+        torch.cuda.empty_cache()
+    out["cells"] = rows
+
+
+def cells_earlier(res: dict, out: dict, traces: dict) -> None:
+    """(d) phi4-mini's cells that [lm], [train] and [long500k] ran: the
+    dry run's trace of the cell at batch 1 beside the peak each phase
+    measured, and what the phase ran that the cell does not."""
+    measured = {
+        "prefill_32k": (res["lm"]["chunked"]["peak_gb"] * 1e9, "[lm]: bf16 weights (the cell's are float32), "
+                        f"a cache of 32768 + {N_DECODE} positions, {N_DECODE} decode steps in the same window"),
+        "train_4k": (res["train"]["lm"]["peak_bytes"], "[train] (a): the same state, steps 0-13"),
+        "long_500k": (res["long500k"]["peak_gib"] * 2**30, "[long500k]: bf16 weights (the cell's are float32)"),
+    }
+    rows = {}
+    for arch, shape, batch in CELL_LM_EARLIER:
+        rec = traces[_trace_key(arch, shape, batch)]
+        peak, note = measured[shape]
+        rows[f"{arch}/{shape}"] = {**traced_row(rec, int(peak)), "fits_h100": rec["fits_h100"], "phase": note}
+    out["cells"] = rows
+    log(f"[cells] (d) traced at batch 1 against the earlier phases' peaks: {json.dumps(rows)}")
+
+
+def wrapper_overhead(out: dict) -> None:
+    """The custom ops' cost a call: each kernel's wrapper against its
+    launching body called straight (``_init_fn``: no dispatcher), CUDA
+    events over back-to-back calls at the leaf scorer's shape (B=1,
+    N_pad=512, D=1152) and at a small flash call, in turns."""
+    import torch
+
+    from repro_torch.kernels.distance_topk import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, c = torch.randn(1, D, device="cuda", generator=g), torch.randn(512, D, device="cuda", generator=g)
+    qa = torch.randn(1, 24, 128, 128, device="cuda", generator=g).to(torch.bfloat16)
+    ka = torch.randn(1, 8, 128, 128, device="cuda", generator=g).to(torch.bfloat16)
+    m = dops.METRIC_CODE["cosine"]
+    pairs = {
+        "distance_topk": (lambda: dops.distance_topk(q, c, 512, "cosine"),
+                          lambda: dops._distance_topk_op._init_fn(q, c, 512, m)),
+        "flash_attention_wgmma": (lambda: fops.flash_attention(qa, ka, ka),
+                                  lambda: fops._flash_op._init_fn(qa, ka, ka, None, "wgmma", True, 128 ** -0.5)),
+    }
+    for name, (wrapped, body) in pairs.items():
+        t = [cuda_ms(f, 200, 20) for f in (wrapped, body, body, wrapped)]
+        out[name] = {"wrapper_ms": (t[0] + t[3]) / 2, "body_ms": (t[1] + t[2]) / 2, "turns_ms": t,
+                     "overhead_us": ((t[0] + t[3]) - (t[1] + t[2])) / 2 * 1e3}
+    log(f"[cells] the custom ops' cost a call (wrapper against its body, back to back): {json.dumps(out)}")
+
+
+def phase_cells(res: dict, seed: int, traces: dict) -> None:
+    """[cells]: (a) the 40 reduced cells on the card against the CPU, (b)
+    the 20 GraphSAGE and recsys cells at full size, (c) qwen2-7b and
+    phi4-mini's decode at full width, (d) the traces of phi4-mini's cells
+    the earlier phases ran; each part's launches counted from 0."""
+    import torch
+
+    out = res["cells"] = {"launches": {}, "overhead": {}}
+    wrapper_overhead(out["overhead"])
+    parts = (("reduced", lambda o: cells_reduced(o, seed)), ("full", lambda o: cells_full(o, seed, traces)),
+             ("lm", lambda o: cells_lm(o, seed, traces)), ("earlier", lambda o: cells_earlier(res, o, traces)))
+    for name, part in parts:
+        out[name] = {}
+        reset_all_launches()
+        t0 = time.perf_counter()
+        part(out[name])
+        torch.cuda.synchronize()
+        out[name]["part_s"] = time.perf_counter() - t0
+        out["launches"][name] = all_launches()
+        log(f"[cells] {name} done in {out[name]['part_s']:.1f} s; kernel launches {out['launches'][name]}; "
+            f"{mem_line()}")
+        torch.cuda.empty_cache()
+    n = out["launches"]
+    assert n["reduced"]["distance_topk"] == n["full"]["distance_topk"] == 4, n      # one a retrieval cell
+    assert n["lm"]["flash_attention_wgmma"] >= 28 and n["lm"]["distance_topk"] == 0, n
+    assert not any(v for k, v in n["reduced"].items() if k != "distance_topk"), n
+    assert not any(v for k, v in n["full"].items() if k != "distance_topk"), n
+    assert not any(n["earlier"].values()), n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-items", type=int, default=200_000)
@@ -3327,10 +3691,11 @@ def main() -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     fault_dir = Path(tempfile.mkdtemp(prefix="faults_", dir=ROOT / "build"))
     fault_builds = start_fault_builds(fault_dir)
+    traces = (fault_dir / "cell_traces.json", start_cell_traces(fault_dir / "cell_traces.json"))
     try:
-        kernels = run_phases(res, args, fault_builds, t_all)
+        kernels = run_phases(res, args, fault_builds, traces, t_all)
     finally:
-        for _, _, p in fault_builds.values():
+        for p in [p for _, _, p in fault_builds.values()] + [traces[1]]:
             if p.poll() is None:
                 p.kill()
             p.wait()
@@ -3343,8 +3708,9 @@ def main() -> int:
     return 0
 
 
-def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
-    """Every phase in order; returns the kernels line's entries."""
+def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float) -> list:
+    """Every phase in order; returns the kernels line's entries.  ``traces``:
+    (the file, the process) of the cells' dry run, started with the smoke."""
     import torch
 
     phase_kernels(res, fault_builds)
@@ -3407,6 +3773,11 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     log(f"[moe] phase done at {time.time() - t_all:.1f} s; {mem_line()}")
     phase_train(res, args.seed)
     log(f"[train] phase done at {time.time() - t_all:.1f} s")
+    t0 = time.time()
+    cell_traces = read_cell_traces(traces[1], traces[0])
+    log(f"[cells] the dry run's traces ready {time.time() - t0:.1f} s after [train]")
+    phase_cells(res, args.seed, cell_traces)
+    log(f"[cells] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
@@ -3416,7 +3787,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
     lm_paths = lambda name: {"long500k_launches": res["long500k"]["launches"][name],
                              "moe_launches": {"llama4-scout": scout["launches"][name],
                                               "llama4-maverick": maverick["launches"][name]},
-                             "train_launches": {p: v[name] for p, v in res["train"]["launches"].items()}}
+                             "train_launches": {p: v[name] for p, v in res["train"]["launches"].items()},
+                             "cells_launches": {p: v[name] for p, v in res["cells"]["launches"].items()}}
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",
@@ -3449,6 +3821,7 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          "federation_launches": res["federation"]["launches"]["distance_topk"],
          "baselines_launches": res["baselines"]["launches"]["distance_topk"],
          "recsys_launches": {a: v["launches"]["distance_topk"] for a, v in res["recsys"].items()},
+         "custom_op": res["cells"]["overhead"]["distance_topk"],
          **lm_paths("distance_topk")},
         {"name": "distance_topk (k < N path)", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
@@ -3474,7 +3847,8 @@ def run_phases(res: dict, args, fault_builds: dict, t_all: float) -> list:
          **{a: f32k[a] for a in four},
          "tflops_counted": f32k["tflops_counted"], "tflops_issued": f32k["tflops_issued"],
          "ms_4k": res["flash_4k"]["ms"], "mma_sync_ms_4k": res["flash_4k"]["mma_sync_ms"],
-         "ptxas": res.get("wgmma_ptxas"), **lm_paths("flash_attention_wgmma"),
+         "ptxas": res.get("wgmma_ptxas"), "custom_op": res["cells"]["overhead"]["flash_attention_wgmma"],
+         **lm_paths("flash_attention_wgmma"),
          "other_flash_launches": {"lm": res["lm"]["flash"]["other_flash_launches"],
                                   **lm_paths("flash_attention")}},
     ]

@@ -5,11 +5,10 @@ Sources: phi4-mini [arXiv:2412.08905], mistral-large
 [hf:mistralai/Mistral-Large-Instruct-2407], qwen2-7b [arXiv:2407.10671],
 llama4 maverick/scout [hf:meta-llama/Llama-4-*].  Maverick alternates dense
 and MoE layers (``moe_every=2``: 128 experts x 48 layers, ~400B in all,
-17B active); scout is MoE in every layer.  Of the reference's training
-fields the port's ``LMConfig`` has the two of one device, ``remat`` and
-``microbatches``; the distribution fields (``fsdp_axis``, ``pure_fsdp``)
-wait for a mesh (ROADMAP Queue 1 #13), as mistral-large's 123B parameters
-wait for four cards.
+17B active); scout is MoE in every layer.  mistral-large and both llama4
+configs shard their parameters' non-"model" dim over "data"
+(``fsdp_axis``), as the reference's do: on one device that only sets
+their partition specs (the mesh is ROADMAP Queue 1 #13).
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ def phi4_mini_full() -> LMConfig:
 def mistral_large_full() -> LMConfig:
     return LMConfig(
         name="mistral-large-123b", n_layers=88, d_model=12288, n_heads=96,
-        n_kv_heads=8, d_ff=28672, vocab=32768, d_head=128,
+        n_kv_heads=8, d_ff=28672, vocab=32768, d_head=128, fsdp_axis="data",
         param_dtype=torch.bfloat16, microbatches=2, retrieval=_RETR,
     )
 
@@ -53,7 +52,7 @@ def llama4_maverick_full() -> LMConfig:
         name="llama4-maverick-400b-a17b", n_layers=48, d_model=5120, n_heads=40,
         n_kv_heads=8, d_ff=8192, vocab=202048, d_head=128,
         moe=MoEConfig(n_experts=128, top_k=1, d_ff=8192), moe_every=2,
-        param_dtype=torch.bfloat16, retrieval=_RETR,
+        fsdp_axis="data", param_dtype=torch.bfloat16, retrieval=_RETR,
     )
 
 
@@ -62,7 +61,7 @@ def llama4_scout_full() -> LMConfig:
         name="llama4-scout-17b-a16e", n_layers=48, d_model=5120, n_heads=40,
         n_kv_heads=8, d_ff=8192, vocab=202048, d_head=128,
         moe=MoEConfig(n_experts=16, top_k=1, d_ff=8192), moe_every=1,
-        retrieval=_RETR,
+        fsdp_axis="data", retrieval=_RETR,
     )
 
 
@@ -84,6 +83,7 @@ def _reduced(full: LMConfig) -> LMConfig:
         dtype=torch.float32,
         param_dtype=torch.float32,
         moe=moe,
+        fsdp_axis=None,
         retrieval=RetrievalAttnConfig(cluster_size=16, top_clusters=2),
         attn_chunk=64,
     )

@@ -16,6 +16,12 @@ tower's), the grouped kernel when a leaf spans several tiles.  The
 scratch and the counters are allocated once per device and stream and
 grow when a call needs more (``workspace``); the shared-memory opt-in is
 read once per device.
+
+``distance_topk``'s launch is the custom op
+``torch.ops.repro_torch.distance_topk``: on fake tensors (the dry run,
+``launch/dryrun.py``) its fake kernel only allocates the outputs and
+``FlopCounterMode`` counts 2·B·N·D operations.  The grouped kernel is on
+no path the dry run traces and stays a plain call.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import distance_topk_ref, grouped_distance_topk_ref
@@ -59,12 +66,21 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def _on_one_cuda_device(*ts: torch.Tensor) -> bool:
+    """Whether the inputs take the kernel's path (True) or the plain
+    version's (False, all on the CPU).  Fake tensors on the meta device, the
+    dry run's stand-ins for tensors on the card, take the kernel's path: its
+    custom op's fake kernel allocates the outputs and launches nothing."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cpu":
         return False
+    if dev.type == "meta":
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        if all(isinstance(t, FakeTensor) for t in ts):
+            return True
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev} (cuda|cpu)")
     return True
@@ -245,6 +261,11 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
         return distance_topk_ref(q, c, k, metric)
     if q.dtype != c.dtype or q.dtype not in DTYPE_CODE:
         raise TypeError(f"distance_topk kernel takes float32/float16/bfloat16 q and c of one dtype, got {q.dtype}, {c.dtype}")
+    return _distance_topk_op(q, c, int(k), m)
+
+
+@torch.library.custom_op("repro_torch::distance_topk", mutates_args=())
+def _distance_topk_op(q: torch.Tensor, c: torch.Tensor, k: int, m: int) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _build.lib("distance_topk")
     B, D = q.shape
     N = c.shape[0]
@@ -263,12 +284,25 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
     with _on(dev):
         err = lib.distance_topk_launch(
             q.data_ptr(), c.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), keys.data_ptr(),
-            counters.data_ptr(), B, N, D, int(k), m, DTYPE_CODE[q.dtype], nblk,
+            counters.data_ptr(), B, N, D, k, m, DTYPE_CODE[q.dtype], nblk,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "distance_topk")
     _count_launch("distance_topk")
     return out_d, out_i
+
+
+@_distance_topk_op.register_fake
+def _(q, c, k, m):
+    B = q.shape[0]
+    return q.new_empty((B, k), dtype=torch.float32), q.new_empty((B, k), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.distance_topk)
+def distance_topk_flops(q, c, k, m, *, out_shape=None) -> int:
+    """2·B·N·D from the shapes: the distance products; the selection is
+    not counted."""
+    return 2 * q[0] * c[0] * q[1]
 
 
 def grouped_distance_topk(

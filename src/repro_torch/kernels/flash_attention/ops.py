@@ -10,10 +10,18 @@ bfloat16 at d = 128 takes the TMA + wgmma kernel
 ``csrc/flash_attention.cu``).  ``launches`` counts the calls that launched
 each library's kernel (plain integers, bumped only there);
 ``reset_launches()`` zeroes them.
+
+The launch is the custom op ``torch.ops.repro_torch.flash_attention``:
+on CUDA tensors its body launches the kernel; on fake tensors (the dry
+run, ``launch/dryrun.py``) its fake kernel only allocates the output and
+``FlopCounterMode`` counts 4·B·Hq·Sq·Skv·d operations (half when causal).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from ..distance_topk.ops import _on_one_cuda_device
@@ -77,18 +85,26 @@ def _check(q, k, v, kv_lens):
 
 
 def _launch(kind: str, q, k, v, kv_lens, causal: bool, scale: float):
-    """Launch the kernel ``kind`` on CUDA tensors and count it."""
+    """Check what the kernel ``kind`` takes, then launch it on CUDA tensors
+    (through the custom op) and count it."""
     if q.dtype not in DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention kernel takes float32 or bfloat16 q, k, v of one dtype, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     B, Hq, Sq, d = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
     if d % 16 or not 16 <= d <= MAX_D:
         raise ValueError(f"flash_attention kernel takes d a multiple of 16 up to {MAX_D}, got {d}")
     if -(-Sq // _BQ[kind]) > 65535 or B > 65535 or Hq > 65535:
         raise ValueError(f"flash_attention grid too large: B={B}, Hq={Hq}, Sq={Sq}")
+    return _flash_op(q, k, v, kv_lens, kind, bool(causal), float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_lens: Optional[torch.Tensor],
+              kind: str, causal: bool, scale: float) -> torch.Tensor:
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     q, k, v = (as_loadable(t) for t in (q, k, v))
     if kv_lens is not None:
         kv_lens = kv_lens.to(torch.int32).contiguous()
@@ -103,18 +119,31 @@ def _launch(kind: str, q, k, v, kv_lens, causal: bool, scale: float):
             name = "flash_attention_wgmma"
             err = _build.lib(name).flash_attention_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), lens, out.data_ptr(),
-                B, Hq, Hkv, Sq, Skv, *strides, float(scale), int(bool(causal)), stream,
+                B, Hq, Hkv, Sq, Skv, *strides, scale, int(causal), stream,
             )
         else:
             name = "flash_attention"
             err = _build.lib(name).flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), lens, out.data_ptr(),
                 B, Hq, Hkv, Sq, Skv, d, *strides,
-                float(scale), int(bool(causal)), DTYPE_CODE[q.dtype], stream,
+                scale, int(causal), DTYPE_CODE[q.dtype], stream,
             )
     _build.check(err, name)
     launches[name] += 1
     return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, kv_lens, kind, causal, scale):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q, k, v, kv_lens, kind, causal, scale, *, out_shape=None) -> int:
+    """4·B·Hq·Sq·Skv·d (q kᵀ and p v) from the shapes, halved when causal."""
+    B, Hq, Sq, d = q
+    n = 4 * B * Hq * Sq * k[2] * d
+    return n // 2 if causal else n
 
 
 def flash_attention(q, k, v, *, kv_lens=None, causal: bool = True, scale: float | None = None):

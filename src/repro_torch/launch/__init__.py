@@ -1,14 +1,19 @@
-"""Launch layer of the port: the train step (``cells.make_train_step``),
-the trainer (``train.py``), the request scheduler and the server
-(counterparts of the reference's ``launch/cells.py``, ``train.py``,
-``scheduler.py`` and ``serve.py``).  Lazy, like the reference's package:
+"""Launch layer of the port: the cells (``cells.py``: one step and its
+abstract inputs per arch x shape) and their dry run on fake tensors
+(``dryrun.py``), the trainer (``train.py``), the request scheduler and the
+server (counterparts of the reference's ``launch/cells.py``,
+``dryrun.py``, ``train.py``, ``scheduler.py`` and ``serve.py``).  Lazy, like the reference's package:
 importing it loads no module until a name is asked for."""
 from __future__ import annotations
 
 import importlib
 
 _EXPORTS = {
+    "Cell": "cells",
+    "build_cell": "cells",
+    "example_inputs": "cells",
     "make_train_step": "cells",
+    "run_cell": "dryrun",
     "Server": "serve",
     "ServeStats": "serve",
     "LatencyRing": "serve",

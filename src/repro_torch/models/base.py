@@ -5,7 +5,11 @@ A model declares its parameters once as a tree (dicts and lists) of
 from the reference's distributions (``repro.models.base``: ``fan_in``,
 ``normal``, ``embed``, ``zeros``, ``ones``), and ``param_count`` counts
 them.  The values differ from ``jax.random``'s; the distributions are the
-same.  ``params_from_jax`` carries a parameter tree the reference made
+same.  ``abstract_params`` gives the same tree as tensors on the meta
+device (shape and dtype, no storage: what the dry run traces from),
+``param_pspecs`` each leaf's mesh-axis names (the reference's
+``PartitionSpec`` entries, as plain tuples) and ``param_bytes`` the bytes
+at the specs' dtypes.  ``params_from_jax`` carries a parameter tree the reference made
 (as numpy arrays) into the port's layout, so that tests run both packages
 on the same weights.
 """
@@ -21,13 +25,15 @@ import torch
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["ParamSpec", "init_params", "param_count", "params_from_jax"]
+__all__ = ["ParamSpec", "init_params", "abstract_params", "param_pspecs", "param_count", "param_bytes",
+           "params_from_jax"]
 
 
 @dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: Any = torch.float32
+    pspec: tuple = ()                 # mesh-axis names a dim, e.g. (None, "model")
     init: str = "fan_in"              # fan_in | normal | zeros | ones | embed
     scale: float | None = None        # stddev override
     fan_in_axis: int = -2             # axis treated as fan-in for scaling
@@ -60,8 +66,24 @@ def init_params(spec_tree, generator: torch.Generator, *, device="cuda", dtype=N
     return tree_map(lambda s: _init_leaf(s, generator, dev, dtype), spec_tree)
 
 
+def abstract_params(spec_tree):
+    """Each leaf as an empty tensor of its shape and dtype on the meta
+    device: no storage, no generator, no card."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), spec_tree)
+
+
+def param_pspecs(spec_tree):
+    """Each leaf's ``pspec``: a tuple of mesh-axis names (or tuples of
+    them, or None) a dimension, () for a replicated leaf."""
+    return tree_map(lambda s: tuple(s.pspec), spec_tree)
+
+
 def param_count(spec_tree) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(spec_tree))
+
+
+def param_bytes(spec_tree) -> int:
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize for s in tree_leaves(spec_tree))
 
 
 def params_from_jax(tree, cfg, *, device="cuda", dtype=None):

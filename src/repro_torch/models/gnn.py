@@ -59,13 +59,13 @@ def param_specs(cfg: GraphSAGEConfig):
             {
                 "w_self": P((dims[l], dims[l + 1]), cfg.dtype),
                 "w_neigh": P((dims[l], dims[l + 1]), cfg.dtype),
-                "b": P((dims[l + 1],), cfg.dtype, "zeros"),
+                "b": P((dims[l + 1],), cfg.dtype, (), "zeros"),
             }
         )
     return {
         "layers": layers,
         "w_out": P((cfg.d_hidden, cfg.n_classes), cfg.dtype),
-        "b_out": P((cfg.n_classes,), cfg.dtype, "zeros"),
+        "b_out": P((cfg.n_classes,), cfg.dtype, (), "zeros"),
     }
 
 

@@ -55,7 +55,8 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
     probs, gate, eidx = route(x, router_w)
 
     # Switch load-balancing aux loss: E * sum_e f_e * P_e
-    frac = torch.bincount(eidx, minlength=E).to(torch.float32) / T
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).index_add_(0, eidx, torch.ones_like(eidx))
+    frac = counts.to(torch.float32) / T
     aux = E * torch.sum(frac * probs.mean(dim=0)) * cfg.aux_loss_weight
 
     order = torch.argsort(eidx, stable=True)
@@ -63,15 +64,20 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
     starts = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
     pos_in_e = torch.arange(T, device=x.device) - starts[sorted_e]
     kept = pos_in_e < C
+    # every shape static (the dry run traces it on fake tensors): the sorted
+    # tokens go to their [E * C] slots, the dropped ones to one spare row
+    slot = torch.where(kept, sorted_e * C + pos_in_e, E * C)
 
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf[sorted_e[kept], pos_in_e[kept]] = x[order[kept]]
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[slot] = x[order]
+    buf = buf[: E * C].view(E, C, D)
     g = F.silu(torch.bmm(buf, w_gate))
     u = torch.bmm(buf, w_up)
     y = torch.bmm(g * u, w_down)                                      # [E, C, D]
 
+    rows = y.reshape(E * C, D)[torch.where(kept, slot, 0)]
     out = torch.zeros((T, D), dtype=y.dtype, device=x.device)
-    out[order[kept]] = y[sorted_e[kept], pos_in_e[kept]]
+    out[order] = torch.where(kept[:, None], rows, torch.zeros((), dtype=y.dtype, device=x.device))
     out = out * gate[:, None].to(y.dtype)
     return out.to(x.dtype), aux
 

@@ -105,7 +105,7 @@ def _mlp_specs(dims, dt, prefix=""):
     out = {}
     for i in range(len(dims) - 1):
         out[f"{prefix}w{i}"] = P((dims[i], dims[i + 1]), dt)
-        out[f"{prefix}b{i}"] = P((dims[i + 1],), dt, "zeros")
+        out[f"{prefix}b{i}"] = P((dims[i + 1],), dt, (), "zeros")
     return out
 
 
@@ -125,23 +125,23 @@ def param_specs(cfg: RecSysConfig):
     # table rows padded to a shard-divisible count, as the reference's
     # (model axis <= 512 on its meshes); offsets never address the pad rows
     rows = -(-cfg.total_vocab // 512) * 512 if cfg.total_vocab > 512 else cfg.total_vocab
-    specs: dict = {"table": P((rows, d), dt, "embed")}
+    specs: dict = {"table": P((rows, d), dt, ("model", None), "embed")}
     seq_d = d * cfg.seq_fields
     if cfg.interaction == "transformer-seq":  # BST
         dm = seq_d
         specs.update(
             {
-                "pos_embed": P((cfg.seq_len + 1, dm), dt, "embed"),
+                "pos_embed": P((cfg.seq_len + 1, dm), dt, (None, None), "embed"),
                 "wq": P((cfg.n_blocks, dm, cfg.n_heads * cfg.d_attn), dt),
                 "wk": P((cfg.n_blocks, dm, cfg.n_heads * cfg.d_attn), dt),
                 "wv": P((cfg.n_blocks, dm, cfg.n_heads * cfg.d_attn), dt),
                 "wo": P((cfg.n_blocks, cfg.n_heads * cfg.d_attn, dm), dt),
-                "ln_g": P((cfg.n_blocks, 2, dm), dt, "ones"),
-                "ln_b": P((cfg.n_blocks, 2, dm), dt, "zeros"),
+                "ln_g": P((cfg.n_blocks, 2, dm), dt, (None, None, None), "ones"),
+                "ln_b": P((cfg.n_blocks, 2, dm), dt, (None, None, None), "zeros"),
                 "ffw1": P((cfg.n_blocks, dm, 4 * dm), dt),
-                "ffb1": P((cfg.n_blocks, 4 * dm), dt, "zeros"),
+                "ffb1": P((cfg.n_blocks, 4 * dm), dt, (None, None), "zeros"),
                 "ffw2": P((cfg.n_blocks, 4 * dm, dm), dt),
-                "ffb2": P((cfg.n_blocks, dm), dt, "zeros"),
+                "ffb2": P((cfg.n_blocks, dm), dt, (None, None), "zeros"),
             }
         )
         mlp_in = (cfg.seq_len + 1) * dm + (cfg.n_fields - cfg.seq_fields) * d
@@ -151,11 +151,11 @@ def param_specs(cfg: RecSysConfig):
             {
                 "gru_wx": P((seq_d, 3 * g), dt),
                 "gru_wh": P((g, 3 * g), dt),
-                "gru_b": P((3 * g,), dt, "zeros"),
+                "gru_b": P((3 * g,), dt, (), "zeros"),
                 "att_w": P((g, seq_d), dt),
                 "augru_wx": P((g, 3 * g), dt),
                 "augru_wh": P((g, 3 * g), dt),
-                "augru_b": P((3 * g,), dt, "zeros"),
+                "augru_b": P((3 * g,), dt, (), "zeros"),
             }
         )
         mlp_in = g + (cfg.n_fields - cfg.seq_fields) * d + seq_d
@@ -180,7 +180,7 @@ def param_specs(cfg: RecSysConfig):
         specs.update(
             {
                 "cross_w": P((cfg.n_cross_layers, x0_dim, x0_dim), dt),
-                "cross_b": P((cfg.n_cross_layers, x0_dim), dt, "zeros"),
+                "cross_b": P((cfg.n_cross_layers, x0_dim), dt, (None, None), "zeros"),
             }
         )
         mlp_in = x0_dim
@@ -194,7 +194,7 @@ def param_specs(cfg: RecSysConfig):
     else:
         head_in = cfg.mlp[-1]
     specs["w_head"] = P((head_in, 1), dt)
-    specs["b_head"] = P((1,), dt, "zeros")
+    specs["b_head"] = P((1,), dt, (), "zeros")
     # retrieval tower projection (retrieval_cand workload)
     specs["w_ret"] = P((d, d), dt)
     return specs

@@ -28,7 +28,9 @@ through torch autograd; with ``cfg.remat`` each layer is a
 its scan body), and chunked attention checkpoints its query blocks.
 
 Not ported yet, raising ``NotImplementedError``: sharding rules (ROADMAP
-Queue 1 #13).
+Queue 1 #13).  ``param_specs`` carries the reference's partition specs
+(``fsdp_axis``, ``pure_fsdp``) for the cells and the dry run; code on one
+device ignores them.
 """
 from __future__ import annotations
 
@@ -90,6 +92,8 @@ class LMConfig:
     attn_impl: str = "chunked"      # full | chunked | flash
     attn_chunk: int = 1024
     remat: bool = True              # training: recompute each layer in the backward pass
+    fsdp_axis: Any = None           # mesh axis (or tuple) to ZeRO-3 shard params over: pspecs only
+    pure_fsdp: bool = False         # no tensor parallelism (FSDP-only layout): pspecs only
     microbatches: int = 1           # gradient-accumulation chunks per step
 
     @property
@@ -103,36 +107,41 @@ class LMConfig:
 
 def _check(rules) -> None:
     if rules is not None and (rules.batch or rules.model is not None or rules.seq is not None):
-        raise NotImplementedError("sharding rules are not ported yet: the port runs on one device (ROADMAP Queue 1 #13)")
+        raise NotImplementedError(
+            "sharding rules are not ported yet: the port runs on one device (ROADMAP Queue 1 #13 part 2)")
 
 
 # ------------------------------------------------------------------ params
 def _layer_specs(cfg: LMConfig, *, moe: bool) -> dict:
-    """Specs of one layer with a dense or an MoE FFN."""
+    """Specs of one layer with a dense or an MoE FFN.  Each ``pspec`` is
+    the reference's for its stacked ``[L, ...]`` leaf without the leading
+    ``None`` of the layer axis."""
     D, F = cfg.d_model, cfg.d_ff
     pdt = cfg.param_dtype
+    fs = cfg.fsdp_axis  # None -> replicate the non-"model" big dim
+    tp = None if cfg.pure_fsdp else "model"   # pure FSDP: no TP axis at all
     layers: dict[str, P] = {
-        "attn_norm": P((D,), pdt, "ones"),
-        "wq": P((D, cfg.q_dim), pdt),
-        "wk": P((D, cfg.kv_dim), pdt),
-        "wv": P((D, cfg.kv_dim), pdt),
-        "wo": P((cfg.q_dim, D), pdt),
-        "ffn_norm": P((D,), pdt, "ones"),
+        "attn_norm": P((D,), pdt, (None,), "ones"),
+        "wq": P((D, cfg.q_dim), pdt, (fs, tp)),
+        "wk": P((D, cfg.kv_dim), pdt, (fs, tp)),
+        "wv": P((D, cfg.kv_dim), pdt, (fs, tp)),
+        "wo": P((cfg.q_dim, D), pdt, (tp, fs)),
+        "ffn_norm": P((D,), pdt, (None,), "ones"),
     }
     if cfg.qkv_bias:
-        layers["bq"] = P((cfg.q_dim,), pdt, "zeros")
-        layers["bk"] = P((cfg.kv_dim,), pdt, "zeros")
-        layers["bv"] = P((cfg.kv_dim,), pdt, "zeros")
+        layers["bq"] = P((cfg.q_dim,), pdt, (tp,), "zeros")
+        layers["bk"] = P((cfg.kv_dim,), pdt, (tp,), "zeros")
+        layers["bv"] = P((cfg.kv_dim,), pdt, (tp,), "zeros")
     if not moe:
-        layers["w_gate"] = P((D, F), pdt)
-        layers["w_up"] = P((D, F), pdt)
-        layers["w_down"] = P((F, D), pdt)
+        layers["w_gate"] = P((D, F), pdt, (fs, tp))
+        layers["w_up"] = P((D, F), pdt, (fs, tp))
+        layers["w_down"] = P((F, D), pdt, (tp, fs))
     else:
         E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
-        layers["router"] = P((D, E), pdt)
-        layers["we_gate"] = P((E, D, Fe), pdt)
-        layers["we_up"] = P((E, D, Fe), pdt)
-        layers["we_down"] = P((E, Fe, D), pdt)
+        layers["router"] = P((D, E), pdt, (fs, None))
+        layers["we_gate"] = P((E, D, Fe), pdt, ("model", fs, None))
+        layers["we_up"] = P((E, D, Fe), pdt, ("model", fs, None))
+        layers["we_down"] = P((E, Fe, D), pdt, ("model", fs, None))
     return layers
 
 
@@ -156,11 +165,16 @@ def _moe_layers(cfg: LMConfig) -> list[bool]:
 
 def param_specs(cfg: LMConfig):
     pdt = cfg.param_dtype
+    fs = cfg.fsdp_axis
+    V, D = cfg.vocab, cfg.d_model
+    # pure FSDP: embed and lm_head shard their D dim (vocabularies such as
+    # phi4's 200064 do not divide the mesh)
+    embed_ps, head_ps = ((None, fs), (fs, None)) if cfg.pure_fsdp else (("model", fs), (fs, "model"))
     return {
-        "embed": P((cfg.vocab, cfg.d_model), pdt, "embed"),
+        "embed": P((V, D), pdt, embed_ps, "embed"),
         "layers": [_layer_specs(cfg, moe=m) for m in _moe_layers(cfg)],
-        "final_norm": P((cfg.d_model,), pdt, "ones"),
-        "lm_head": P((cfg.d_model, cfg.vocab), pdt),
+        "final_norm": P((D,), pdt, (None,), "ones"),
+        "lm_head": P((D, V), pdt, head_ps),
     }
 
 

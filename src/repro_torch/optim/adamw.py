@@ -72,7 +72,7 @@ def _clipped(grads: list, clip: float | None) -> list:
 
 def _into(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The float32 update ``u``, in ``g``'s storage when ``g`` is float32."""
-    return g.copy_(u) if g.dtype == torch.float32 and g.data_ptr() != u.data_ptr() else u
+    return g.copy_(u) if g.dtype == torch.float32 and g is not u else u
 
 
 def adamw(

@@ -105,6 +105,25 @@ def test_distance_topk_pads_past_n_with_inf_minus_one(metric):
     assert torch.isinf(d[:, 20:]).all() and (i[:, 20:] == -1).all()
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("B,N,D,k", [(3, 20, 16, 32), (1, 60, 18, 100), (5, 1, 8, 4)])
+def test_distance_topk_past_n_matches_the_pallas_kernel_where_finite(metric, B, N, D, k):
+    """k > N against the TPU kernel in interpret mode: the same distances
+    and ids where its distance is finite; past N the port gives (inf, -1)
+    where the TPU kernel's id is stale (``_merge_topk`` re-reads position
+    0's), so its ids there are not held."""
+    q = RNG.normal(size=(B, D)).astype(np.float32)
+    c = RNG.normal(size=(N, D)).astype(np.float32)
+    d, i = ops.distance_topk(torch.from_numpy(q), torch.from_numpy(c), k, metric)
+    d1, i1 = (np.asarray(x) for x in distance_topk_pallas(jnp.asarray(q), jnp.asarray(c), k, metric,
+                                                           interpret=True))
+    live = np.isfinite(d1)
+    assert (live.sum(1) == N).all() and np.array_equal(live, np.isfinite(d.numpy()))
+    _close(d.numpy()[live], d1[live])
+    np.testing.assert_array_equal(i.numpy()[live], i1[live])
+    assert torch.isinf(d[:, N:]).all() and (i[:, N:] == -1).all()
+
+
 def test_distance_topk_ties_go_to_the_lower_index():
     c = np.zeros((10, 4), np.float32)
     c[[2, 5, 7]] = 1.0                                   # three equal rows
