@@ -204,6 +204,21 @@ Phases, none of whose failures is caught:
    are counted from 0 (``distance_topk`` once a retrieval cell, the wgmma
    flash kernel once a qwen2 layer).
 
+11. mesh: the distribution layer on the host mesh (NCCL at world size 1,
+   ``make_host_mesh()``: (1, 1) over ("data", "model")), the real sharded
+   code and its collectives on one rank.  phi4-mini at full width: (a) the
+   sequence-parallel ``prefill`` of 4096 tokens at 32 layers through flash
+   (32 launches) against the one-device prefill, chunked and flash; (b) 16
+   ``decode_step``s through ``flash_decode_sharded``, (c) 4
+   ``retrieval_decode_step``s through ``retrieval_update_and_attend_sharded``
+   over a 32768-token clustered cache, each against the one-device step in
+   float32; (d) the sequence-parallel loss and gradients at 4 layers
+   against ``lm_loss`` without rules, then ``psum_compressed`` against
+   ``compress_decompress``.  Then ``lower_cell`` on the 20 reduced LM
+   cells against their one-device step, and llama4-scout at 4 layers with
+   no token dropped through ``moe_ffn_ep`` against ``moe_ffn``.  Launches
+   counted from 0 around each part.
+
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Distances agree within 1e-4 relative:
 |a - b| <= 1e-4 * max(1, |b|); ids agree except where two distances lie
@@ -409,6 +424,35 @@ CELL_LM_RUNS = (("qwen2-7b", "prefill_32k", 1), ("qwen2-7b", "decode_32k", None)
                 ("phi4-mini-3.8b", "decode_32k", None))
 CELL_LM_EARLIER = (("phi4-mini-3.8b", "prefill_32k", 1), ("phi4-mini-3.8b", "train_4k", 1),
                    ("phi4-mini-3.8b", "long_500k", 1))
+# [mesh]: the distribution layer on the host mesh, one NCCL rank, (1, 1)
+# ("data", "model").  phi4-mini at full width: (a) the sequence-parallel
+# prefill of MESH_PREFILL tokens through flash against the one-device
+# prefill, chunked (LOGIT_REL_TOL, the argmax as [lm]'s) and flash (the
+# same computation on one rank: MESH_SAME_RTOL, the same argmax); (b)
+# MESH_DECODE decode steps through flash_decode_sharded and (c)
+# MESH_RETR_STEPS retrieval steps through retrieval_update_and_attend_sharded
+# over a MESH_RETR_SEQ-token clustered cache, each against the one-device
+# step, in float32 (in bf16 the two attentions round p at different
+# points): logits within MESH_DECODE_RTOL / MESH_RETR_RTOL relative L2, the
+# greedy tokens equal, the written caches within MESH_RETR_RTOL of their
+# largest entry; (d) a
+# sequence-parallel loss and gradients at MESH_TRAIN_LAYERS layers against
+# lm_loss without rules, float32 (MESH_TRAIN_RTOL of each leaf's largest
+# entry), then psum_compressed against compress_decompress (bit for bit).
+# Then the 20 reduced LM cells through lower_cell against their one-device
+# step on the card (CELL_ATOL), and llama4-scout at MESH_SCOUT_LAYERS
+# layers, no token dropped (capacity factor = experts), prefill through
+# moe_ffn_ep against moe_ffn (MESH_SAME_RTOL, the same argmax).
+MESH_PREFILL = 4096
+MESH_DECODE = 16
+MESH_RETR_SEQ = 32768
+MESH_RETR_STEPS = 4
+MESH_TRAIN_LAYERS = 4
+MESH_SCOUT_LAYERS = 4
+MESH_SAME_RTOL = 1e-3
+MESH_DECODE_RTOL = 1e-4
+MESH_RETR_RTOL = 1e-5
+MESH_TRAIN_RTOL = 1e-5
 
 
 def log(*a) -> None:
@@ -3668,6 +3712,253 @@ def phase_cells(res: dict, seed: int, traces: dict) -> None:
     assert not any(n["earlier"].values()), n
 
 
+# ---------------------------------------------------------------- [mesh]
+def rel_l2(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def mesh_rules(mesh, *, sp: bool):
+    from repro_torch.models import transformer as T
+
+    return T.ShardingRules(batch=("data",), model="model", seq="model" if sp else None, mesh=mesh)
+
+
+def mesh_prefill(out: dict, mesh, seed: int) -> None:
+    """(a) phi4-mini's sequence-parallel prefill through flash."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import shard_params
+
+    cfg = lm_archs.get("phi4-mini-3.8b")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, g)
+    tokens = torch.randint(0, cfg.vocab, (1, MESH_PREFILL), generator=g, device="cuda")
+    chunked, _ = T.prefill(params, tokens, replace(cfg, attn_impl="chunked"), max_seq=MESH_PREFILL)
+    flash, _ = T.prefill(params, tokens, replace(cfg, attn_impl="flash"), max_seq=MESH_PREFILL)
+    pl = shard_params(params, T.param_specs(cfg), mesh)
+    n0 = fops.launches["flash_attention_wgmma"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(pl, tokens, replace(cfg, attn_impl="flash"), mesh_rules(mesh, sp=True),
+                              max_seq=MESH_PREFILL)
+    torch.cuda.synchronize()
+    r = {"prefill_s": time.perf_counter() - t0, "mesh_launches": fops.launches["flash_attention_wgmma"] - n0,
+         "rel_vs_chunked": rel_l2(logits, chunked), "rel_vs_flash": rel_l2(logits, flash),
+         "argmax": [int(logits.argmax()), int(chunked.argmax()), int(flash.argmax())],
+         "chunked_gap": float(chunked[0, int(chunked.argmax())] - chunked[0, int(logits.argmax())])}
+    assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all()), "[mesh] (a) logits"
+    assert r["mesh_launches"] == cfg.n_layers, r
+    assert r["rel_vs_chunked"] < LOGIT_REL_TOL and r["chunked_gap"] <= ARGMAX_GAP, r
+    assert r["rel_vs_flash"] < MESH_SAME_RTOL and r["argmax"][0] == r["argmax"][2], r
+    assert tuple(cache.k.shape) == (cfg.n_layers, 1, cfg.n_kv_heads, MESH_PREFILL, cfg.d_head), cache.k.shape
+    out["prefill"] = r
+    log(f"[mesh] (a) sequence-parallel prefill of {MESH_PREFILL} tokens, phi4-mini bf16 at 32 layers, flash on "
+        f"the rank's {cfg.n_heads} query heads: {json.dumps(r)}")
+
+
+def mesh_decode(out: dict, mesh, seed: int) -> None:
+    """(b) decode through flash_decode_sharded against the one-device
+    decode, float32, after a one-device prompt of MESH_PREFILL tokens."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import shard_params
+
+    cfg = replace(lm_archs.get("phi4-mini-3.8b"), dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    params = T.init_params(cfg, g)
+    tokens = torch.randint(0, cfg.vocab, (1, MESH_PREFILL), generator=g, device="cuda")
+    logits, c1 = T.prefill(params, tokens, cfg, max_seq=MESH_PREFILL + MESH_DECODE)
+    cm = T.KVCache(k=c1.k.clone(), v=c1.v.clone(), pos=c1.pos)
+    pl, rules = shard_params(params, T.param_specs(cfg), mesh), mesh_rules(mesh, sp=False)
+    tok = tok_m = logits.argmax(-1)
+    rel, ms, ms1 = [], [], []
+    for _ in range(MESH_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, c1 = T.decode_step(params, c1, tok, cfg)
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        lm, cm = T.decode_step(pl, cm, tok_m, cfg, rules)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rel.append(rel_l2(lm, l1))
+        tok, tok_m = l1.argmax(-1), lm.argmax(-1)
+        assert torch.equal(tok, tok_m), "[mesh] (b) the greedy tokens differ"
+    kerr = float((cm.k - c1.k).abs().max() / c1.k.abs().max())
+    r = {"rel_by_step": rel, "mesh_step_ms": ms, "one_device_step_ms": ms1, "cache_k_rel": kerr}
+    assert max(rel) < MESH_DECODE_RTOL and kerr < MESH_RETR_RTOL, r
+    out["decode"] = r
+    log(f"[mesh] (b) {MESH_DECODE} decode steps through flash_decode_sharded, phi4-mini float32: "
+        f"{json.dumps(r)}")
+
+
+def mesh_retrieval(out: dict, mesh, seed: int) -> None:
+    """(c) retrieval decode through retrieval_update_and_attend_sharded over
+    a MESH_RETR_SEQ-token clustered cache, float32."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import retrieval_attention as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import shard_params
+
+    cfg = replace(lm_archs.get("phi4-mini-3.8b"), dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    params = T.init_params(cfg, g)
+    cs = cfg.retrieval.cluster_size
+    c1 = R.init_clustered_cache(cfg.n_layers, 1, cfg.n_kv_heads, MESH_RETR_SEQ, cs, cfg.d_head, torch.float32)
+    fill_clustered_cache(c1, MESH_RETR_SEQ - LONG_TAIL, g)
+    cm = R.ClusteredKVCache(k=c1.k.clone(), v=c1.v.clone(), centroids=c1.centroids.clone(), pos=c1.pos)
+    pl, rules = shard_params(params, T.param_specs(cfg), mesh), mesh_rules(mesh, sp=False)
+    tok = torch.randint(0, cfg.vocab, (1,), generator=g, device="cuda")
+    rel, ms, ms1 = [], [], []
+    for _ in range(MESH_RETR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, c1 = T.retrieval_decode_step(params, c1, tok, cfg)
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        lm, cm = T.retrieval_decode_step(pl, cm, tok, cfg, rules)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rel.append(rel_l2(lm, l1))
+        assert torch.equal(l1.argmax(-1), lm.argmax(-1)), "[mesh] (c) the greedy tokens differ"
+        tok = l1.argmax(-1)
+    errs = {f: float((getattr(cm, f) - getattr(c1, f)).abs().max() / getattr(c1, f).abs().max())
+            for f in ("k", "v", "centroids")}
+    r = {"rel_by_step": rel, "mesh_step_ms": ms, "one_device_step_ms": ms1, "cache_rel": errs, "pos": cm.pos}
+    assert max(rel) < MESH_RETR_RTOL and max(errs.values()) < MESH_RETR_RTOL and cm.pos == c1.pos, r
+    out["retrieval"] = r
+    log(f"[mesh] (c) {MESH_RETR_STEPS} retrieval steps through retrieval_update_and_attend_sharded over "
+        f"{MESH_RETR_SEQ} tokens, phi4-mini float32: {json.dumps(r)}")
+
+
+def mesh_train(out: dict, mesh, seed: int) -> None:
+    """(d) a sequence-parallel loss and gradients against lm_loss without
+    rules, then psum_compressed of the gradients."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.distributed.collectives import psum_compressed
+    from repro_torch.launch.cells import _sum_replicas, value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import param_pspecs, shard_params
+    from repro_torch.optim.compress import compress_decompress, init_ef_state
+    from repro_torch.tree import tree_leaves
+
+    cfg = replace(lm_archs.get("phi4-mini-3.8b"), n_layers=MESH_TRAIN_LAYERS, dtype=torch.float32)
+    specs = T.param_specs(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    params = T.init_params(cfg, g, dtype=torch.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, MESH_PREFILL + 1), generator=g, device="cuda")}
+    (l1, _), g1 = value_and_grad(lambda p, b: T.lm_loss(p, b, cfg), params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rules = mesh_rules(mesh, sp=True)
+    (lm, _), gm = value_and_grad(lambda p, b: T.lm_loss(p, b, cfg, rules), shard_params(params, specs, mesh), batch)
+    gm, norm = _sum_replicas(gm, mesh, param_pspecs(specs))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    gerr = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(tree_leaves(gm), tree_leaves(g1)))
+    r = {"loss": float(lm), "loss_one_device": float(l1), "loss_rel": abs(float(lm - l1)) / abs(float(l1)),
+         "grad_rel_max": gerr, "grad_norm": float(norm), "mesh_loss_and_grads_s": step_s}
+    del g1
+    comp = psum_compressed(gm, mesh, "data")
+    ref, _ = compress_decompress(gm, init_ef_state(gm))
+    r["psum_compressed_equal"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(comp), tree_leaves(ref)))
+    assert r["loss_rel"] < MESH_TRAIN_RTOL and gerr < MESH_TRAIN_RTOL and r["psum_compressed_equal"], r
+    out["train"] = r
+    log(f"[mesh] (d) sequence-parallel loss and gradients, phi4-mini float32 at {MESH_TRAIN_LAYERS} layers, "
+        f"{MESH_PREFILL} tokens: {json.dumps(r)}")
+
+
+def mesh_cells(out: dict, mesh, seed: int) -> None:
+    """The 20 reduced LM cells through lower_cell against their one-device
+    step on the card."""
+    import torch
+    from repro_torch.configs import ALL_CELLS, get_arch
+    from repro_torch.distributed.elastic import map_specs
+    from repro_torch.launch import cells
+
+    rows = {}
+    for arch, shape in ALL_CELLS:
+        if get_arch(arch)[0] != "lm":
+            continue
+        one = cells.build_cell(arch, shape, mesh_axes=None, reduced=True)
+        cell = cells.build_cell(arch, shape, mesh_axes=mesh.mesh_dim_names, reduced=True)
+        with torch.no_grad():
+            want = one.fn(*to_cuda(cells.example_inputs(one, seed, device="cpu")))
+            got = cells.lower_cell(cell, mesh)(*to_cuda(cells.example_inputs(cell, seed, device="cpu")))
+        got = map_specs(lambda t, ps: t.full_tensor(), got, cell.out_pspecs)
+        what = f"[mesh] cells {arch} {shape}"
+        errs = [held_close(what, a, b.cpu()) for a, b in zip(cells.arg_leaves(got), cells.arg_leaves(want))]
+        rows[f"{arch}/{shape}"] = max(errs)
+    assert len(rows) == 20, rows
+    out["cells"] = rows
+    log(f"[mesh] the 20 reduced LM cells through lower_cell against one device, max abs err: {json.dumps(rows)}")
+
+
+def mesh_moe(out: dict, mesh, seed: int) -> None:
+    """llama4-scout at MESH_SCOUT_LAYERS layers, no token dropped: the
+    sequence-parallel prefill (moe_ffn_ep) against the one-device one
+    (moe_ffn), both through flash."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import shard_params
+
+    full = lm_archs.get("llama4-scout-17b-a16e")
+    cfg = replace(full, n_layers=MESH_SCOUT_LAYERS, attn_impl="flash",
+                  moe=replace(full.moe, capacity_factor=float(full.moe.n_experts)))
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    params = T.init_params(cfg, g)
+    tokens = torch.randint(0, cfg.vocab, (1, MESH_PREFILL), generator=g, device="cuda")
+    l1, _ = T.prefill(params, tokens, cfg, max_seq=MESH_PREFILL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm, _ = T.prefill(shard_params(params, T.param_specs(cfg), mesh), tokens, cfg, mesh_rules(mesh, sp=True),
+                      max_seq=MESH_PREFILL)
+    torch.cuda.synchronize()
+    r = {"rel": rel_l2(lm, l1), "argmax": [int(lm.argmax()), int(l1.argmax())], "mesh_prefill_s":
+         time.perf_counter() - t0, "experts": cfg.moe.n_experts, "capacity_factor": cfg.moe.capacity_factor}
+    assert r["rel"] < MESH_SAME_RTOL and r["argmax"][0] == r["argmax"][1], r
+    out["moe"] = r
+    log(f"[mesh] llama4-scout at {MESH_SCOUT_LAYERS} layers, {MESH_PREFILL} tokens, moe_ffn_ep against moe_ffn: "
+        f"{json.dumps(r)}")
+
+
+def phase_mesh(res: dict, seed: int, work: Path) -> None:
+    """[mesh]: the distribution layer on the host mesh, NCCL at world size
+    1; each part's launches counted from 0."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+
+    out = res["mesh"] = {"launches": {}, "part_s": {}}
+    with process_group(0, 1, init_file=work / "mesh_store", backend="nccl"):
+        mesh = make_host_mesh()
+        log(f"[mesh] {gpu_line()}; NCCL, world size 1, host mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+        for name, part in (("prefill", mesh_prefill), ("decode", mesh_decode), ("retrieval", mesh_retrieval),
+                           ("train", mesh_train), ("cells", mesh_cells), ("moe", mesh_moe)):
+            reset_all_launches()
+            t0 = time.perf_counter()
+            part(out, mesh, seed)
+            torch.cuda.synchronize()
+            out["part_s"][name] = time.perf_counter() - t0
+            out["launches"][name] = all_launches()
+            log(f"[mesh] {name} done in {out['part_s'][name]:.1f} s; kernel launches {out['launches'][name]}; "
+                f"{mem_line()}")
+            torch.cuda.empty_cache()
+    n = out["launches"]
+    # (a): one-device flash, then the mesh's: a launch a layer each; scout: the same, 4 layers
+    assert n["prefill"]["flash_attention_wgmma"] == 64 and n["moe"]["flash_attention_wgmma"] == 2 * MESH_SCOUT_LAYERS, n
+    assert not any(v for p in ("decode", "retrieval", "train", "cells") for v in n[p].values()), n
+    log(f"[mesh] phase seconds by part {json.dumps(out['part_s'])}; {gpu_line()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-items", type=int, default=200_000)
@@ -3778,6 +4069,12 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
     log(f"[cells] the dry run's traces ready {time.time() - t0:.1f} s after [train]")
     phase_cells(res, args.seed, cell_traces)
     log(f"[cells] phase done at {time.time() - t_all:.1f} s")
+    mesh_dir = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    try:
+        phase_mesh(res, args.seed, mesh_dir)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    log(f"[mesh] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
@@ -3788,7 +4085,8 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
                              "moe_launches": {"llama4-scout": scout["launches"][name],
                                               "llama4-maverick": maverick["launches"][name]},
                              "train_launches": {p: v[name] for p, v in res["train"]["launches"].items()},
-                             "cells_launches": {p: v[name] for p, v in res["cells"]["launches"].items()}}
+                             "cells_launches": {p: v[name] for p, v in res["cells"]["launches"].items()},
+                             "mesh_launches": {p: v[name] for p, v in res["mesh"]["launches"].items()}}
     kernels = [
         {"name": "grouped_distance_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_distance_topk.cu",

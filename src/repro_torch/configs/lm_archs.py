@@ -7,8 +7,9 @@ llama4 maverick/scout [hf:meta-llama/Llama-4-*].  Maverick alternates dense
 and MoE layers (``moe_every=2``: 128 experts x 48 layers, ~400B in all,
 17B active); scout is MoE in every layer.  mistral-large and both llama4
 configs shard their parameters' non-"model" dim over "data"
-(``fsdp_axis``), as the reference's do: on one device that only sets
-their partition specs (the mesh is ROADMAP Queue 1 #13).
+(``fsdp_axis``), as the reference's do: on a mesh those weights are
+gathered over "data" at use; on one device it only sets their partition
+specs.
 """
 from __future__ import annotations
 

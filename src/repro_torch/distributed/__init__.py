@@ -1,8 +1,7 @@
-"""Fault tolerance on one process (the reference's ``repro.distributed``).
-The collectives and the elastic reshard wait for the distribution layer
-(ROADMAP Queue 1 #13) and raise naming it."""
+"""The reference's ``repro.distributed``: collectives over a mesh's axes,
+placing and resharding a state onto a mesh, and fault tolerance."""
 from .collectives import psum_compressed, tree_psum
-from .elastic import make_shardings, reshard_tree
+from .elastic import local_tree, make_shardings, reshard_tree
 from .fault_tolerance import FailureInjector, TrainSupervisor
 
 __all__ = [
@@ -10,6 +9,7 @@ __all__ = [
     "tree_psum",
     "make_shardings",
     "reshard_tree",
+    "local_tree",
     "FailureInjector",
     "TrainSupervisor",
 ]

@@ -16,12 +16,17 @@ A ``Cell`` is everything the dry run needs and nothing it must allocate:
 ``args_from_jax`` carries the reference's concrete inputs of the same cell
 across, so that tests run both packages' steps on the same numbers.
 
-On one device only: a cell built with mesh axes carries the reference's
-partition specs, but its ``fn`` raises ``NotImplementedError`` (through
-the models' ``_check``) until the distribution layer is ported (ROADMAP
-Queue 1 #13 part 2); the dry run and the tests build cells with
-``mesh_axes=None``.  ``make_train_step`` runs ``value_and_grad`` (torch
-autograd) and the optimizer in place.
+On a mesh: a cell built with mesh axes carries the reference's partition
+specs and rules naming those axes; ``lower_cell(cell, mesh)`` binds its
+step to a ``DeviceMesh`` (the reference's jit with shardings): the
+returned ``Lowered`` cuts each rank's shards of the inputs by
+``in_pspecs``, runs the rank's step and gives the outputs as ``DTensor``s
+laid out by ``out_pspecs``.  Unbound, such a cell's ``fn`` raises.  The
+20 GraphSAGE and recsys cells have no distribution code in the reference
+(GSPMD partitions them alone): ``lower_cell`` raises for them.
+``make_train_step`` runs ``value_and_grad`` (torch autograd) and the
+optimizer in place; on a mesh it first sums each gradient over the axes
+its weight is replicated on and clips by the global norm of the shards.
 """
 from __future__ import annotations
 
@@ -33,15 +38,18 @@ import torch
 
 from ..configs import arch_shapes, get_arch
 from ..device import resolve_device
+from ..distributed import collectives as C
+from ..distributed.elastic import local_tree, map_specs
 from ..models import gnn, recsys
 from ..models import transformer as T
 from ..models.base import abstract_params, init_params, param_count, param_pspecs, params_from_jax
 from ..models.retrieval_attention import ClusteredKVCache
 from ..optim import adamw, apply_updates, warmup_cosine
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .mesh import axes_of, axis_size, placements
 
-__all__ = ["Cell", "build_cell", "make_rules", "example_inputs", "args_from_jax", "map_args", "arg_leaves",
-           "make_train_step", "value_and_grad", "to_device"]
+__all__ = ["Cell", "Lowered", "build_cell", "lower_cell", "make_rules", "example_inputs", "args_from_jax", "map_args",
+           "arg_leaves", "make_train_step", "value_and_grad", "to_device"]
 
 _CACHES = (T.KVCache, ClusteredKVCache)
 
@@ -97,14 +105,40 @@ def value_and_grad(loss_fn, params, batch):
     return (loss.detach(), tree_map(detach, metrics)), tree_unflatten(params, grads)
 
 
-def make_train_step(loss_fn, opt, *, microbatches: int = 1):
+def _replica_axes(mesh, ps) -> tuple:
+    named = {a for e in ps for a in axes_of(e)}
+    return tuple(a for a in mesh.mesh_dim_names if a not in named)
+
+
+@torch.no_grad()
+def _sum_replicas(grads, mesh, pspecs):
+    """Each rank's gradient of its shard summed over the axes its weight is
+    replicated on (the gradient of a loss whose shares the ranks hold), and
+    the global norm of the whole gradient (each shard counted once)."""
+    sq = []
+
+    def leaf(g, ps):
+        rep = _replica_axes(mesh, ps)
+        g = C.all_reduce(g, mesh, rep)
+        sq.append(torch.sum(torch.square(g.to(torch.float32))) / axis_size(mesh, rep))
+        return g
+
+    grads = map_specs(leaf, grads, pspecs)
+    return grads, torch.sqrt(C.all_reduce(torch.stack(sq).sum(), mesh, mesh.mesh_dim_names))
+
+
+def make_train_step(loss_fn, opt, *, microbatches: int = 1, mesh=None, pspecs=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``batch``'s numpy leaves go to the parameters' device.  microbatches >
     1: gradient accumulation over that many chunks of the batch's leading
     axis, in float32: activation memory scales 1/n while the optimizer
     state is touched once.  The optimizer works in place (``optim.adamw``):
-    the returned params and state are the ones passed in, updated.
+    the returned params and state are the ones passed in, updated.  On
+    ``mesh`` the params are this rank's shards by ``pspecs`` and
+    ``loss_fn`` returns the loss of the ranks' shares
+    (``collectives.total``); the gradients are summed over each weight's
+    replica axes and clipped by their global norm.
     """
 
     def step(params, opt_state, batch):
@@ -126,7 +160,11 @@ def make_train_step(loss_fn, opt, *, microbatches: int = 1):
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
             metrics = tree_map(lambda *xs: torch.mean(torch.stack(xs), dim=0), *ms)
-        updates, opt_state = opt.update(grads, opt_state, params)
+        if mesh is None:
+            updates, opt_state = opt.update(grads, opt_state, params)
+        else:
+            grads, norm = _sum_replicas(grads, mesh, pspecs)
+            updates, opt_state = opt.update(grads, opt_state, params, grad_norm=norm)
         params = apply_updates(params, updates)
         return params, opt_state, {"loss": loss, **metrics}
 
@@ -176,8 +214,14 @@ def _lm_cell(arch: str, cfg: T.LMConfig, shape_id: str, sh: dict, rules: T.Shard
         aparams_t, pparams_t = abstract_params(specs_t), param_pspecs(specs_t)
         meta["cfg"] = cfg
         mdt = torch.bfloat16 if cfg.param_dtype == torch.bfloat16 else torch.float32
-        loss_fn = lambda p, b: T.lm_loss(p, b, cfg, t_rules)
-        fn = make_train_step(loss_fn, _opt_for(cfg), microbatches=cfg.microbatches)
+
+        def bind(mesh):
+            r = replace(t_rules, mesh=mesh)
+            return make_train_step(lambda p, b: T.lm_loss(p, b, cfg, r), _opt_for(cfg),
+                                   microbatches=cfg.microbatches, mesh=mesh if r.sharded else None, pspecs=pparams_t)
+
+        meta["bind"] = bind
+        fn = bind(None)
         args = (aparams_t, _abstract_opt(aparams_t, mdt), {"tokens": _abstract((batch, seq), torch.int32)})
         pspecs = (pparams_t, _opt_pspecs(pparams_t), {"tokens": (Bax_t, None)})
         out_ps = (pparams_t, _opt_pspecs(pparams_t), {"loss": (), "xent": (), "aux": ()})
@@ -185,7 +229,9 @@ def _lm_cell(arch: str, cfg: T.LMConfig, shape_id: str, sh: dict, rules: T.Shard
         return Cell(arch, shape_id, "train", fn, args, pspecs, donate=(0, 1), out_pspecs=out_ps, meta=meta)
 
     if sh["kind"] == "prefill":
-        fn = lambda params, tokens: T.prefill(params, tokens, cfg, sp_rules, max_seq=seq)
+        meta["bind"] = lambda mesh: lambda params, tokens: T.prefill(params, tokens, cfg,
+                                                                      replace(sp_rules, mesh=mesh), max_seq=seq)
+        fn = meta["bind"](None)
         args = (aparams, _abstract((batch, seq), torch.int32))
         pspecs = (pparams, (Bax, None))
         cache_ps = (None, Bax, None, "model", None)
@@ -199,7 +245,9 @@ def _lm_cell(arch: str, cfg: T.LMConfig, shape_id: str, sh: dict, rules: T.Shard
                            pos=_abstract((), torch.int32))
         cache_ps = (None, Bax, None, "model", None)
         pcache = T.KVCache(k=cache_ps, v=cache_ps, pos=())
-        fn = lambda params, cache, tokens: T.decode_step(params, cache, tokens, cfg, rules)
+        meta["bind"] = lambda mesh: lambda params, cache, tokens: T.decode_step(params, cache, tokens, cfg,
+                                                                                 replace(rules, mesh=mesh))
+        fn = meta["bind"](None)
         args = (aparams, acache, _abstract((batch,), torch.int32))
         pspecs = (pparams, pcache, (Bax,))
         meta["tokens"] = batch
@@ -216,7 +264,9 @@ def _lm_cell(arch: str, cfg: T.LMConfig, shape_id: str, sh: dict, rules: T.Shard
                                   centroids=_abstract(ce, torch.float32), pos=_abstract((), torch.int32))
         kv_ps = (None, None, None, seq_ax, None, None)
         pcache = ClusteredKVCache(k=kv_ps, v=kv_ps, centroids=(None, None, None, seq_ax, None), pos=())
-        fn = lambda params, cache, tokens: T.retrieval_decode_step(params, cache, tokens, cfg, rules)
+        meta["bind"] = lambda mesh: lambda params, cache, tokens: T.retrieval_decode_step(
+            params, cache, tokens, cfg, replace(rules, mesh=mesh))
+        fn = meta["bind"](None)
         args = (aparams, acache, _abstract((batch,), torch.int32))
         pspecs = (pparams, pcache, (None,))
         meta["tokens"] = batch
@@ -352,6 +402,59 @@ def build_cell(arch_id: str, shape_id: str, *, mesh_axes=("data", "model"), redu
     if family == "recsys":
         return _recsys_cell(arch_id, cfg, shape_id, sh, rules)
     raise ValueError(family)
+
+
+@dataclass
+class Lowered:
+    """A cell bound to a mesh (the reference's ``jit(..., in_shardings,
+    out_shardings)``).  ``step(*local_args)`` is this rank's step on its
+    shards; calling the object takes the cell's whole inputs (numpy,
+    tensors or ``DTensor``s), cuts this rank's shards by ``in_pspecs``
+    (``local_args``), runs the step and lays the outputs out by
+    ``out_pspecs`` as ``DTensor``s (``place``)."""
+
+    cell: Cell
+    mesh: Any
+    step: Callable
+
+    def local_args(self, args) -> tuple:
+        return local_tree(tuple(args), self.mesh, self.cell.in_pspecs)
+
+    def place(self, out):
+        return map_specs(lambda t, ps: _as_dtensor(t, self.mesh, ps), out, self.cell.out_pspecs)
+
+    def __call__(self, *args):
+        return self.place(self.step(*self.local_args(args)))
+
+
+def _as_dtensor(t: torch.Tensor, mesh, ps):
+    """This rank's shard ``t`` as a ``DTensor`` of spec ``ps``; the whole
+    shape sums the shards' lengths over each sharded dim's axes."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(t.shape)
+    for dim, e in enumerate(ps):
+        if axes_of(e):
+            n = C.all_reduce(torch.full((), t.shape[dim], dtype=torch.int64, device=t.device), mesh, e)
+            shape[dim] = int(n.item())
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t.contiguous(), mesh, placements(mesh, ps, t.ndim), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def lower_cell(cell: Cell, mesh) -> Lowered:
+    """Bind ``cell``'s step to ``mesh`` (a ``DeviceMesh`` whose axis names
+    the cell was built with): its rules carry the mesh, a train step sums
+    its gradients over replica axes (``make_train_step``).  LM cells only:
+    the GraphSAGE and recsys cells have no distribution code in the
+    reference (GSPMD partitions them alone) and raise."""
+    if cell.meta["family"] != "lm":
+        raise NotImplementedError(
+            f"{cell.arch} x {cell.shape}: the {cell.meta['family']} cells on a mesh are not ported "
+            "(the reference leaves them to GSPMD; ROADMAP Queue 1 #13 part 3)")
+    if cell.out_pspecs is None or "bind" not in cell.meta:
+        raise ValueError(f"{cell.arch} x {cell.shape} has no step to bind")
+    return Lowered(cell, mesh, cell.meta["bind"](mesh))
 
 
 def _reduce_shape(family: str, sh: dict) -> dict:

@@ -6,6 +6,7 @@ XLA's memory analysis; here one device and torch's fake tensors.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape decode_32k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
 Each cell is built with ``mesh_axes=None``; its meta args become fake
 tensors inside one ``FakeTensorMode`` (shapes and dtypes, no storage), and
@@ -22,7 +23,17 @@ The fake tensors stand on the meta device, not on "cuda": a build of torch
 without CUDA has no device guard for "cuda", and Python indexing of a fake
 CUDA tensor needs one.  The kernels' wrappers send fake meta tensors down
 the card's path, to their custom ops' fake kernels, so the trace is the one
-a run on the card takes.
+a run on the card takes; the record counts each custom op's calls
+(``kernel_calls``).
+
+``--mesh single|multi|both``: the 20 LM cells on the production meshes
+(16 x 16 = 256 ranks, 2 x 16 x 16 = 512), each traced as one rank of the
+fake process group (``launch.mesh.process_group(backend="fake")``): the
+cell is bound by ``lower_cell``, its args are that rank's shards (rank 0
+by default: the first shard of an uneven cut is the largest, ceil(n /
+ranks)), and its collectives run on fake tensors.  Per cell: the rank's
+argument bytes, its traced peak and its FLOPs.  The GraphSAGE and recsys
+cells have no distribution code (ROADMAP Queue 1 #13 part 3).
 """
 from __future__ import annotations
 
@@ -34,10 +45,12 @@ from pathlib import Path
 
 import torch
 
-from ..configs import ALL_CELLS, arch_shapes
-from .cells import arg_leaves, build_cell, map_args
+from ..configs import ALL_CELLS, arch_shapes, get_arch
+from .cells import arg_leaves, build_cell, lower_cell, map_args
 
-__all__ = ["H100_FIT_BYTES", "run_cell", "trace_cell", "main"]
+__all__ = ["H100_FIT_BYTES", "run_cell", "run_cell_mesh", "trace_cell", "trace_on_mesh", "main"]
+
+MESH_RANKS = {"single": 256, "multi": 512}
 
 # what a cell may trace to and still be run on one H100 (79.18 GiB usable):
 # the rest is the CUDA context, the allocator's rounding and fragmentation
@@ -47,9 +60,30 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in arg_leaves(tree))
 
 
-def trace_cell(cell) -> dict:
-    """Run ``cell.fn`` once on fake tensors: the traced peak of live bytes
-    and the FLOPs counted."""
+def _kernel_counter():
+    """A dispatch mode that counts the calls of the port's custom ops (the
+    kernels' launches on the card)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class KernelCalls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "repro_torch":
+                self.calls[func.__name__.split(".")[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    return KernelCalls()
+
+
+def trace_cell(cell, args=None, fn=None) -> dict:
+    """Run ``cell.fn`` (or ``fn``) once on fake tensors shaped as
+    ``cell.args`` (or ``args``): the traced peak of live bytes, the FLOPs
+    and the custom ops' calls counted."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
@@ -58,18 +92,59 @@ def trace_cell(cell) -> dict:
     # meta tensors a step makes itself (torch.tensor(..., device=x.device)) join the fake ones
     with FakeTensorMode(allow_non_fake_inputs=True):
         fake = lambda _name, t: torch.empty(t.shape, dtype=t.dtype, device="meta")
-        args = tuple(map_args(fake, a, pos=0) for a in cell.args)
+        args = tuple(map_args(fake, a, pos=0) for a in (cell.args if args is None else args))
         tracker = MemTracker()
         tracker.track_external(*arg_leaves(args))
         flops = FlopCounterMode(display=False)
+        kernels = _kernel_counter()
         # a serving step runs without autograd, as on the card; a train
         # step's value_and_grad turns it back on
-        with tracker, flops, torch.no_grad():
-            out = cell.fn(*args)
+        with tracker, flops, kernels, torch.no_grad():
+            out = (fn or cell.fn)(*args)
         del out
         peak = max(v["Total"] for v in tracker.get_tracker_snapshot("peak").values())
     return {"peak_bytes": int(peak), "flops_traced": int(flops.get_total_flops()),
-            "trace_s": time.perf_counter() - t0}
+            "kernel_calls": dict(kernels.calls), "trace_s": time.perf_counter() - t0}
+
+
+def trace_on_mesh(cell, mesh) -> dict:
+    """Trace this rank's step of ``cell`` (built with ``mesh``'s axis names)
+    bound to ``mesh``: its args are the rank's shards (meta tensors)."""
+    from ..distributed.elastic import map_specs
+    from .mesh import local_shape
+
+    local = map_specs(lambda t, ps: torch.empty(local_shape(t.shape, mesh, ps), dtype=t.dtype, device="meta"),
+                      cell.args, cell.in_pspecs)
+    return {"arg_bytes": _nbytes(local), "donated_bytes": sum(_nbytes(local[i]) for i in cell.donate),
+            **trace_cell(cell, local, lower_cell(cell, mesh).step)}
+
+
+def run_cell_mesh(arch: str, shape: str, mesh_name: str = "single", *, rank: int = 0,
+                  verbose: bool = True) -> dict:
+    """Trace ``arch`` x ``shape`` as rank ``rank`` of the fake process group
+    on the production mesh ``mesh_name`` ("single": 16 x 16, "multi":
+    2 x 16 x 16).  The record: the rank's argument bytes, traced peak,
+    FLOPs and kernel calls, and ``fits_h100`` (that peak within
+    ``H100_FIT_BYTES``)."""
+    from .mesh import make_production_mesh, process_group
+
+    if get_arch(arch)[0] != "lm":
+        raise NotImplementedError(f"{arch}: the GraphSAGE and recsys cells on a mesh are not ported "
+                                  "(ROADMAP Queue 1 #13 part 3)")
+    with process_group(rank, MESH_RANKS[mesh_name], backend="fake"):
+        mesh = make_production_mesh(mesh_name == "multi")
+        cell = build_cell(arch, shape, mesh_axes=mesh.mesh_dim_names)
+        rec = {"arch": arch, "shape": shape, "kind": cell.kind, "mesh": "x".join(map(str, mesh.shape)),
+               "ranks": mesh.size(), "rank": rank, "coordinate": list(mesh.get_coordinate()),
+               "n_params": int(cell.meta["n_params"]), "tokens": int(cell.meta.get("tokens", 0)),
+               "pure_fsdp": bool(cell.meta["cfg"].pure_fsdp), **trace_on_mesh(cell, mesh)}
+    rec["fits_h100"] = rec["peak_bytes"] <= H100_FIT_BYTES
+    if verbose:
+        print(f"[dryrun] {arch:28s} {shape:14s} mesh={rec['mesh']:9s} rank={rank:<3d} "
+              f"args/rank={rec['arg_bytes'] / 2**30:8.3f}GiB peak/rank={rec['peak_bytes'] / 2**30:8.3f}GiB "
+              f"flops/rank={rec['flops_traced']:.4e} kernels={rec['kernel_calls']} trace={rec['trace_s']:.1f}s",
+              flush=True)
+    return rec
 
 
 def run_cell(arch: str, shape: str, *, batch: int | None = None, verbose: bool = True) -> dict:
@@ -134,6 +209,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default=None,
+                    help="trace the LM cells as one rank of the production mesh(es) instead of one device")
     ap.add_argument("--out", default=str(Path(__file__).resolve().parents[3] / "dryrun_out"))
     args = ap.parse_args(argv)
     cells = (list(ALL_CELLS) if args.all
@@ -142,6 +219,18 @@ def main(argv=None) -> int:
         raise SystemExit(f"no cells selected (arch={args.arch} shape={args.shape})")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    if args.mesh:
+        lm = [(a, s) for a, s in cells if get_arch(a)[0] == "lm"]
+        if len(lm) < len(cells):
+            print(f"[dryrun] {len(cells) - len(lm)} GraphSAGE/recsys cells left out: on a mesh they are not "
+                  "ported (ROADMAP Queue 1 #13 part 3)", flush=True)
+        names = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+        for name in names:
+            for arch, shape in lm:
+                rec = run_cell_mesh(arch, shape, name)
+                (out / f"dryrun_{name}_{arch}_{shape}.json").write_text(json.dumps(rec, indent=1))
+        print(f"[dryrun] {len(lm) * len(names)} mesh traces; records in {out}", flush=True)
+        return 0
     recs = []
     for arch, shape in cells:
         rec = run_cell(arch, shape)

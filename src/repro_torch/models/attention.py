@@ -13,18 +13,21 @@ Three implementations, one math:
                   (``kernels/flash_attention``), the prefill path.
 
 All are GQA-aware ([B, Hq, Sq, d] queries vs [B, Hkv, Skv, d] kv) and
-return float32.  ``flash_decode_sharded`` (the reference's decode over a
-sequence-sharded cache) waits for ROADMAP Queue 1 #13.
+return float32.  ``flash_decode_sharded`` is the decode over a cache
+whose sequence is sharded over a mesh axis: each rank attends over its
+slice, and the partial softmaxes combine across ranks.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import collectives as C
 from ..kernels.flash_attention import mha_ref
 from ..kernels.flash_attention import ops as flash_ops
+from ..launch.mesh import axis_index
 
-__all__ = ["attention"]
+__all__ = ["attention", "flash_decode_sharded"]
 
 
 def _block(qb, ke32, ve32, vdtype, kv_idx, end, j0, *, causal, scale, Sq):
@@ -79,6 +82,42 @@ def _chunked(q, k, v, *, causal, scale, chunk, kv_lens=None, remat=True):
         out[:, :, j0 : j0 + cq] = (checkpoint(_block, *args, **kw, use_reentrant=False) if ckpt
                                    else _block(*args, **kw))
     return out
+
+
+def flash_decode_sharded(q, k, v, kv_lens, *, mesh, model_axis: str, scale: float | None = None):
+    """Decode attention with the KV cache's sequence sharded over
+    ``model_axis`` (the reference's explicit flash-decoding).
+
+    q [B, Hq, 1, d], replicated over ``model_axis``; k, v [B, Hkv, S_loc, d]:
+    this rank's slice of the cache, ``S_loc`` positions from ``index *
+    S_loc`` (the cache splits evenly, as in the reference); kv_lens [B].
+    Each rank computes its partial (m, l, acc) in float32, then a pmax and
+    two psums over ``model_axis`` combine them: only O(B·Hq·d) crosses
+    ranks, never the cache.  Returns [B, Hq, 1, d] float32.
+    """
+    B, Hq, _, d = q.shape
+    Hkv, S_loc = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    off = axis_index(mesh, model_axis) * S_loc
+    ke = torch.repeat_interleave(k, group, dim=1) if group > 1 else k
+    ve = torch.repeat_interleave(v, group, dim=1) if group > 1 else v
+    s = torch.matmul(q.to(torch.float32), ke.to(torch.float32).transpose(-1, -2)) * scale   # [B, Hq, 1, S_loc]
+    idx = off + torch.arange(S_loc, device=q.device)
+    mask = idx[None, None, None, :] < kv_lens.to(q.device)[:, None, None, None]
+    s = torch.where(mask, s, -torch.inf)
+    m = torch.amax(s, dim=-1, keepdim=True)                                              # [B, Hq, 1, 1]
+    zero = torch.zeros((), device=q.device)
+    p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(m), m, zero)), zero)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(ve.dtype).to(torch.float32), ve.to(torch.float32))
+    # combine the partial softmaxes across the cache's shards
+    m_g = C.all_reduce(m, mesh, model_axis, op="max")
+    corr = torch.where(torch.isfinite(m), torch.exp(m - torch.where(torch.isfinite(m_g), m_g, zero)), zero)
+    l_g = C.all_reduce(l * corr, mesh, model_axis)
+    acc_g = C.all_reduce(acc * corr, mesh, model_axis)
+    return acc_g / torch.clamp_min(l_g, 1e-30)
 
 
 def attention(q, k, v, *, causal: bool = True, kv_lens=None, scale: float | None = None,

@@ -11,7 +11,9 @@ device (shape and dtype, no storage: what the dry run traces from),
 ``PartitionSpec`` entries, as plain tuples) and ``param_bytes`` the bytes
 at the specs' dtypes.  ``params_from_jax`` carries a parameter tree the reference made
 (as numpy arrays) into the port's layout, so that tests run both packages
-on the same weights.
+on the same weights; ``shard_params`` cuts a whole tree into this rank's
+shards on a mesh by the specs' partition specs (what the sharded model
+functions take).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["ParamSpec", "init_params", "abstract_params", "param_pspecs", "param_count", "param_bytes",
-           "params_from_jax"]
+           "params_from_jax", "shard_params"]
 
 
 @dataclass(frozen=True)
@@ -120,3 +122,11 @@ def params_from_jax(tree, cfg, *, device="cuda", dtype=None):
     else:
         out["layers"] = unstack(layers, cfg.n_layers)
     return out
+
+
+def shard_params(params, spec_tree, mesh):
+    """This rank's shard of every leaf of ``params`` (whole tensors, numpy
+    arrays or ``DTensor``s) on ``mesh``, by ``param_pspecs(spec_tree)``."""
+    from ..distributed.elastic import local_tree
+
+    return local_tree(params, mesh, param_pspecs(spec_tree))

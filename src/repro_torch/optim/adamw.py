@@ -59,13 +59,15 @@ def _device(params) -> torch.device:
     return leaves[0].device if leaves else torch.device("cpu")
 
 
-def _clipped(grads: list, clip: float | None) -> list:
+def _clipped(grads: list, clip: float | None, gn=None) -> list:
     """Each gradient in float32, scaled by ``min(1, clip / max(|g|, 1e-12))``
-    when ``clip`` is set (in place for float32 gradients)."""
+    when ``clip`` is set (in place for float32 gradients); ``gn``: the
+    global norm where the gradients are one rank's shards."""
     g32 = [g.to(torch.float32) for g in grads]
     if clip is None:
         return g32
-    gn = torch.sqrt(sum(torch.sum(torch.square(g)) for g in g32))
+    if gn is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g)) for g in g32))
     scale = torch.clamp_max(torch.full_like(gn, clip) / torch.clamp_min(gn, 1e-12), 1.0)
     return [g.mul_(scale) for g in g32]
 
@@ -97,10 +99,10 @@ def adamw(
         }
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, *, grad_norm=None):
         step = state["step"] + 1
         gl = tree_leaves(grads)
-        g32 = _clipped(gl, clip)
+        g32 = _clipped(gl, clip, grad_norm)
         stepf = step.to(torch.float32)
         bc1 = 1 - b1 ** stepf
         bc2 = 1 - b2 ** stepf

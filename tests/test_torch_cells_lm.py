@@ -193,11 +193,23 @@ def test_pspecs_equal_the_reference_s(arch, mesh_axes):
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k", "long_500k"])
-def test_a_cell_on_a_mesh_raises_until_the_distribution_layer(shape):
+def test_a_cell_on_a_mesh_raises_until_the_distribution_layer(shape, tmp_path):
+    """A cell built with mesh axes raises until ``lower_cell`` binds its step
+    to a mesh; bound to the host mesh (one gloo rank, (1, 1)) it gives the
+    one-device cell's outputs, laid out by its ``out_pspecs``."""
+    from repro_torch.distributed.elastic import map_specs
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+
     pc = PC.build_cell("qwen2-7b", shape, mesh_axes=("data", "model"), reduced=True)
-    args = PC.example_inputs(pc, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #13 part 2"):
-        pc.fn(*args)
+    with pytest.raises(ValueError, match="carry no mesh"):
+        pc.fn(*PC.example_inputs(pc, device="cpu"))
+    one = PC.build_cell("qwen2-7b", shape, mesh_axes=None, reduced=True)
+    want = one.fn(*PC.example_inputs(one, device="cpu"))
+    with process_group(0, 1, init_file=tmp_path / "store", backend="gloo"):
+        got = PC.lower_cell(pc, make_host_mesh())(*PC.example_inputs(pc, device="cpu"))
+        got = map_specs(lambda t, ps: t.full_tensor(), got, pc.out_pspecs)
+    for a, b in zip(PC.arg_leaves(got), PC.arg_leaves(want), strict=True):
+        _close(shape, a, b, OUT_ATOL)
 
 
 def test_full_size_train_cell_traces_as_the_reference_counts():

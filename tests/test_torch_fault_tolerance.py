@@ -1,9 +1,8 @@
 """The port's checkpoints and supervisor on the CPU, and against the JAX
 package's.
 
-The twins of ``tests/test_fault_tolerance.py`` run on the port (all but
-the elastic reshard onto a mesh, which waits for ROADMAP Queue 1 #13 and
-raises naming it).  Then the two packages' ``save_tree`` write the same
+The twins of ``tests/test_fault_tolerance.py`` run on the port (the
+elastic reshard onto a one-rank gloo mesh).  Then the two packages' ``save_tree`` write the same
 files byte for byte for the same tree, and each ``load_tree`` reads the
 other's.  Restarts are bit for bit: the same float32 operations replayed.
 """
@@ -104,9 +103,21 @@ def test_too_many_failures_raises(tmp_path):
         sup.run(s, 10, injector=inj)
 
 
-def test_elastic_reshard_waits_for_the_distribution_layer():
-    with pytest.raises(NotImplementedError, match="reshard_tree.*Queue 1 #13"):
-        reshard_tree({}, None, {})
+def test_elastic_reshard_waits_for_the_distribution_layer(tmp_path):
+    """The reference's ``test_elastic_reshard_roundtrip``: save, load back
+    as host numpy, place onto the host mesh (one gloo rank, (1, 1)) by the
+    parameters' partition specs; every ``DTensor`` holds the saved leaf."""
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.models.base import init_params, param_pspecs
+
+    specs = T.param_specs(CFG)
+    params = init_params(specs, torch.Generator().manual_seed(1), device="cpu", dtype=torch.float32)
+    save_tree(str(tmp_path / "e"), params, attrs={"step": 0})
+    back, _ = load_tree(str(tmp_path / "e"))
+    with process_group(0, 1, init_file=tmp_path / "store", backend="gloo"):
+        placed = reshard_tree(back, make_host_mesh(), param_pspecs(specs))
+        for a, b in zip(tree_leaves(placed), tree_leaves(params), strict=True):
+            assert torch.equal(a.full_tensor(), b)
 
 
 def test_loader_is_pure_in_step():
