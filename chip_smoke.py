@@ -216,8 +216,15 @@ Phases, none of whose failures is caught:
    against ``lm_loss`` without rules, then ``psum_compressed`` against
    ``compress_decompress``.  Then ``lower_cell`` on the 20 reduced LM
    cells against their one-device step, and llama4-scout at 4 layers with
-   no token dropped through ``moe_ffn_ep`` against ``moe_ffn``.  Launches
-   counted from 0 around each part.
+   no token dropped through ``moe_ffn_ep`` against ``moe_ffn``.  Last,
+   graph_recsys: ``lower_cell`` on the 20 reduced GraphSAGE and recsys
+   cells (the sharded gather-scatter, the row-sharded table, the candidate
+   top-k over sharded candidates) and, at full width, the four
+   ``retrieval_cand`` cells at 1M candidates, GraphSAGE ``ogb_products``
+   (one train step) and bst ``serve_bulk``, each against its one-device
+   step from ``cells.live_inputs``; ``distance_topk`` once a
+   ``retrieval_cand`` run (16), no other kernel.  Launches counted from 0
+   around each part.
 
 Prints a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Distances agree within 1e-4 relative:
@@ -442,7 +449,16 @@ CELL_LM_EARLIER = (("phi4-mini-3.8b", "prefill_32k", 1), ("phi4-mini-3.8b", "tra
 # Then the 20 reduced LM cells through lower_cell against their one-device
 # step on the card (CELL_ATOL), and llama4-scout at MESH_SCOUT_LAYERS
 # layers, no token dropped (capacity factor = experts), prefill through
-# moe_ffn_ep against moe_ffn (MESH_SAME_RTOL, the same argmax).
+# moe_ffn_ep against moe_ffn (MESH_SAME_RTOL, the same argmax).  Last,
+# graph_recsys: the 20 reduced GraphSAGE and recsys cells through
+# lower_cell against their one-device step on the card from live_inputs
+# (train: held_train's rules; serve CELL_ATOL; retrieval ids equal, scores
+# within the kernel's tol), then at full width MESH_GR_FULL: the four
+# retrieval_cand cells at 1M candidates (the same checks), a
+# GraphSAGE ogb_products train step (held_train) and bst serve_bulk
+# (CELL_ATOL); distance_topk launches once a retrieval_cand run.
+MESH_GR_FULL = (("bst", "retrieval_cand"), ("dien", "retrieval_cand"), ("autoint", "retrieval_cand"),
+                ("dcn-v2", "retrieval_cand"), ("graphsage-reddit", "ogb_products"), ("bst", "serve_bulk"))
 MESH_PREFILL = 4096
 MESH_DECODE = 16
 MESH_RETR_SEQ = 32768
@@ -3931,6 +3947,58 @@ def mesh_moe(out: dict, mesh, seed: int) -> None:
         f"{json.dumps(r)}")
 
 
+def mesh_graph_recsys(out: dict, mesh, seed: int) -> None:
+    """The 20 reduced GraphSAGE and recsys cells through lower_cell against
+    their one-device step, then MESH_GR_FULL at full width, each from one
+    set of live_inputs (a copy a step: the train steps work in place)."""
+    import torch
+    from repro_torch.configs import ALL_CELLS, get_arch
+    from repro_torch.distributed.elastic import map_specs
+    from repro_torch.launch import cells
+    from repro_torch.tree import tree_map
+
+    def both(arch, shape, reduced, make):
+        one = cells.build_cell(arch, shape, mesh_axes=None, reduced=reduced)
+        low = cells.lower_cell(cells.build_cell(arch, shape, mesh_axes=mesh.mesh_dim_names, reduced=reduced), mesh)
+        args = make(one)
+        copy = lambda: tree_map(lambda t: t.clone(), args) if one.kind == "train" else args
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = one.fn(*copy())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = map_specs(lambda t, ps: t.full_tensor(), low(*copy()), low.out_pspecs)
+        torch.cuda.synchronize()
+        what = f"[mesh] graph_recsys {arch} {shape}{' reduced' if reduced else ''}"
+        row = {"one_device_s": t1 - t0, "mesh_s": time.perf_counter() - t1}
+        if one.kind == "train":
+            row.update(held_train(what, one.meta["family"], got, tree_map(lambda t: t.cpu(), want)))
+        elif one.kind == "serve":
+            row["err"] = held_close(what, got, want.cpu())
+        else:
+            assert torch.equal(got[1], want[1]) and bool((got[1] >= 0).all()), what
+            err = (got[0] - want[0]).abs().cpu().numpy()
+            assert (err <= tol(want[0].cpu().numpy())).all(), (what, err.max())
+            row["err"] = float(err.max())
+        return row
+
+    rows = {}
+    for arch, shape in ALL_CELLS:
+        if get_arch(arch)[0] != "lm":
+            rows[f"{arch}/{shape}"] = both(arch, shape, True,
+                                           lambda c: to_cuda(cells.live_inputs(c, seed, device="cpu")))
+    assert len(rows) == 20, rows
+    out["graph_recsys"] = {"reduced": rows}
+    log(f"[mesh] graph_recsys: the 20 reduced GraphSAGE and recsys cells through lower_cell against one device: "
+        f"{json.dumps(rows)}")
+    full = {}
+    for arch, shape in MESH_GR_FULL:
+        full[f"{arch}/{shape}"] = both(arch, shape, False, lambda c: cells.live_inputs(c, seed, device="cuda"))
+        log(f"[mesh] graph_recsys {arch} {shape} at full width: {json.dumps(full[f'{arch}/{shape}'])}; {mem_line()}")
+        torch.cuda.empty_cache()
+    out["graph_recsys"]["full"] = full
+
+
 def phase_mesh(res: dict, seed: int, work: Path) -> None:
     """[mesh]: the distribution layer on the host mesh, NCCL at world size
     1; each part's launches counted from 0."""
@@ -3942,7 +4010,8 @@ def phase_mesh(res: dict, seed: int, work: Path) -> None:
         mesh = make_host_mesh()
         log(f"[mesh] {gpu_line()}; NCCL, world size 1, host mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
         for name, part in (("prefill", mesh_prefill), ("decode", mesh_decode), ("retrieval", mesh_retrieval),
-                           ("train", mesh_train), ("cells", mesh_cells), ("moe", mesh_moe)):
+                           ("train", mesh_train), ("cells", mesh_cells), ("moe", mesh_moe),
+                           ("graph_recsys", mesh_graph_recsys)):
             reset_all_launches()
             t0 = time.perf_counter()
             part(out, mesh, seed)
@@ -3956,6 +4025,10 @@ def phase_mesh(res: dict, seed: int, work: Path) -> None:
     # (a): one-device flash, then the mesh's: a launch a layer each; scout: the same, 4 layers
     assert n["prefill"]["flash_attention_wgmma"] == 64 and n["moe"]["flash_attention_wgmma"] == 2 * MESH_SCOUT_LAYERS, n
     assert not any(v for p in ("decode", "retrieval", "train", "cells") for v in n[p].values()), n
+    # graph_recsys: distance_topk once a retrieval_cand run, one-device and mesh, reduced and full width
+    runs = 2 * (4 + sum(shape == "retrieval_cand" for _, shape in MESH_GR_FULL))
+    assert n["graph_recsys"]["distance_topk"] == runs, n
+    assert not any(v for k, v in n["graph_recsys"].items() if k != "distance_topk"), n
     log(f"[mesh] phase seconds by part {json.dumps(out['part_s'])}; {gpu_line()}")
 
 

@@ -19,6 +19,12 @@ as ``launch.mesh.local_range`` does, padding each rank's piece to
 ``ceil(n / size)`` around the collective: ranks with a short or empty
 piece take part all the same.
 
+``mean_of_shares`` is a mean over rows that some axes split and the
+others repeat (a loss over a batch- or node-sharded model): each rank's
+share is its rows' sum over the whole count and the repeats, so that the
+shares sum to the mean and each weight's gradient, summed over the axes
+the weight is replicated on, comes out once.
+
 ``psum_compressed`` is the cross-pod gradient reduce with int8 codes
 (``optim/compress.py``): quantize each leaf, sum the int32 payload over
 the slow axis, share the largest scale, dequantize.  Under one device the
@@ -35,7 +41,7 @@ from ..launch.mesh import axes_of, axis_size, chunk_range
 from ..optim.compress import dequantize_int8, quantize_int8
 from ..tree import tree_map
 
-__all__ = ["gather", "scatter", "all_reduce", "total", "tree_psum", "psum_compressed"]
+__all__ = ["gather", "scatter", "all_reduce", "total", "mean_of_shares", "tree_psum", "psum_compressed"]
 
 
 # torch 2.13 renames the single-tensor gather and scatter (the old names warn)
@@ -151,6 +157,22 @@ def total(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     for a in axes_of(axes):
         x = _Total.apply(x, mesh.get_group(a))
     return x
+
+
+def mean_of_shares(x_sum: torch.Tensor, count, mesh, axes) -> torch.Tensor:
+    """The mean over rows that the ranks of ``axes`` split and the mesh's
+    other axes repeat, on every rank, from this rank's sum ``x_sum`` over
+    its rows and their ``count`` (a mask's sum where rows are masked).
+    The rank's share is ``x_sum / (max(the count over axes, 1) · the
+    repeats)``: the repeats' shares are equal, so the shares sum to the
+    mean, and ``total`` gives each share the mean's gradient.  A weight's
+    gradient summed over the axes it is replicated on then counts every
+    row once (``launch.cells._sum_replicas``)."""
+    rest = tuple(a for a in mesh.mesh_dim_names if a not in axes_of(axes))
+    with torch.no_grad():
+        n = all_reduce(torch.as_tensor(count, dtype=torch.float32, device=x_sum.device), mesh, axes)
+    share = x_sum / (torch.clamp_min(n, 1.0) * axis_size(mesh, rest))
+    return total(share, mesh, mesh.mesh_dim_names)
 
 
 def tree_psum(tree, mesh, axes):

@@ -21,9 +21,12 @@ specs and rules naming those axes; ``lower_cell(cell, mesh)`` binds its
 step to a ``DeviceMesh`` (the reference's jit with shardings): the
 returned ``Lowered`` cuts each rank's shards of the inputs by
 ``in_pspecs``, runs the rank's step and gives the outputs as ``DTensor``s
-laid out by ``out_pspecs``.  Unbound, such a cell's ``fn`` raises.  The
-20 GraphSAGE and recsys cells have no distribution code in the reference
-(GSPMD partitions them alone): ``lower_cell`` raises for them.
+laid out by ``out_pspecs``.  Unbound, such an LM cell's ``fn`` raises.  The 20
+GraphSAGE and recsys cells have no distribution code in the reference
+(GSPMD partitions them with the same pspecs); here each has an explicit
+body of the rank's shards (``models/gnn.py``, ``models/recsys.py`` with
+``mesh=``), its ``fn`` the one-device step, and the placements of its
+outputs in ``meta["out_pspecs"]`` (the reference sets no out_shardings).
 ``make_train_step`` runs ``value_and_grad`` (torch autograd) and the
 optimizer in place; on a mesh it first sums each gradient over the axes
 its weight is replicated on and clips by the global norm of the shards.
@@ -48,8 +51,8 @@ from ..optim import adamw, apply_updates, warmup_cosine
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .mesh import axes_of, axis_size, placements
 
-__all__ = ["Cell", "Lowered", "build_cell", "lower_cell", "make_rules", "example_inputs", "args_from_jax", "map_args",
-           "arg_leaves", "make_train_step", "value_and_grad", "to_device"]
+__all__ = ["Cell", "Lowered", "build_cell", "lower_cell", "make_rules", "example_inputs", "live_inputs", "args_from_jax",
+           "map_args", "arg_leaves", "make_train_step", "value_and_grad", "to_device"]
 
 _CACHES = (T.KVCache, ClusteredKVCache)
 
@@ -316,11 +319,30 @@ def _gnn_cell(arch: str, cfg0, shape_id: str, sh: dict, rules) -> Cell:
         raise ValueError(sh["kind"])
     specs = gnn.param_specs(cfg)
     aparams, pparams = abstract_params(specs), param_pspecs(specs)
-    fn = make_train_step(lambda p, b: loss(p, b, cfg), adamw(3e-3))
+    # the rows a rank's loss averages: the nodes (full graph), else the batch
+    axes = node_ax if sh["kind"] == "full_graph" else Bax
+    mesh_kw = {"n_nodes": N} if sh["kind"] == "full_graph" else {}
+
+    def bind(mesh):
+        """The train step (on ``mesh``: of the rank's shards).  The loss is
+        the mean over every rank's rows (``softmax_xent`` on the mesh).
+        Full graph: the nodes split over every axis, a rank's share its
+        masked sum over the whole mask's.  Sampled and batched graphs: the
+        batch splits over the batch axes and every "model" rank holds the
+        same rows, so a rank's share is its rows' sum over the batch and
+        over the "model" extent: the replicas' equal shares sum to the
+        one-device loss, and each gradient, summed over every axis (the
+        weights are replicated), and the clipping norm count a row once."""
+        return make_train_step(lambda p, b: loss(p, b, cfg, mesh=mesh, axes=axes, **mesh_kw), adamw(3e-3),
+                               mesh=mesh, pspecs=pparams)
+
     args = (aparams, _abstract_opt(aparams, f32), batch)
     pspecs = (pparams, _opt_pspecs(pparams), pbatch)
-    return Cell(arch, shape_id, "train", fn, args, pspecs, donate=(0, 1),
-                meta={"n_params": param_count(specs), "family": "gnn", "cfg": cfg})
+    meta = {"n_params": param_count(specs), "family": "gnn", "cfg": cfg, "bind": bind,
+            "out_pspecs": (pparams, _opt_pspecs(pparams), {"loss": ()})}
+    if sh["kind"] == "full_graph":
+        meta.update(n_nodes=sh["n_nodes"], n_edges=sh["n_edges"])
+    return Cell(arch, shape_id, "train", bind(None), args, pspecs, donate=(0, 1), meta=meta)
 
 
 # --------------------------------------------------------------- recsys
@@ -350,16 +372,29 @@ def _recsys_cell(arch: str, cfg, shape_id: str, sh: dict, rules) -> Cell:
     meta = {"n_params": param_count(specs), "family": "recsys", "cfg": cfg}
 
     if sh["kind"] == "train":
-        fn = make_train_step(lambda p, b: recsys.recsys_loss(p, b, cfg), adamw(1e-3))
+        def bind(mesh):
+            """The train step (on ``mesh``: of the rank's shards).  The
+            table's rows split over "model", the batch over the batch
+            axes, so every "model" rank holds the same rows: a rank's share
+            of the loss is its rows' sum over the batch and over the
+            "model" extent (``bce_logits`` on the mesh), so that the shares
+            sum to the one-device loss and each gradient, summed over the
+            axes its weight is replicated on, and the clipping norm count
+            a row once."""
+            return make_train_step(lambda p, b: recsys.recsys_loss(p, b, cfg, mesh=mesh, axes=Bax), adamw(1e-3),
+                                   mesh=mesh, pspecs=pparams)
+
         bs = _recsys_batch_specs(cfg, sh["batch"], labeled=True)
         args = (aparams, _abstract_opt(aparams, torch.float32), bs)
         pspecs = (pparams, _opt_pspecs(pparams), _recsys_batch_pspecs(bs, Bax))
-        return Cell(arch, shape_id, "train", fn, args, pspecs, donate=(0, 1), meta=meta)
+        meta.update(bind=bind, out_pspecs=(pparams, _opt_pspecs(pparams), {"loss": ()}))
+        return Cell(arch, shape_id, "train", bind(None), args, pspecs, donate=(0, 1), meta=meta)
 
     if sh["kind"] == "serve":
-        fn = lambda params, batch: torch.sigmoid(recsys.forward(params, batch, cfg))
+        meta["bind"] = lambda mesh: lambda params, batch: torch.sigmoid(recsys.forward(params, batch, cfg, mesh=mesh))
         bs = _recsys_batch_specs(cfg, sh["batch"], labeled=False)
-        return Cell(arch, shape_id, "serve", fn, (aparams, bs), (pparams, _recsys_batch_pspecs(bs, Bax)),
+        meta["out_pspecs"] = (Bax if sh["batch"] > 1 else None,)
+        return Cell(arch, shape_id, "serve", meta["bind"](None), (aparams, bs), (pparams, _recsys_batch_pspecs(bs, Bax)),
                     meta=meta)
 
     if sh["kind"] == "retrieval":
@@ -368,16 +403,24 @@ def _recsys_cell(arch: str, cfg, shape_id: str, sh: dict, rules) -> Cell:
         cand_ax = (tuple(rules.batch) + ("model",)) if rules.batch else None
         bs = _recsys_batch_specs(cfg, sh["batch"], labeled=False)
 
-        def fn(params, batch, cand_emb):
-            # the reference scores all n_pad rows and masks the pad rows to
-            # -inf; with n_cand >= 100 the top 100 of the first n_cand are
-            # the same (one launch of distance_topk's k < N path on the card)
-            return recsys.candidate_scores(recsys.user_tower(params, batch, cfg), cand_emb[:n_cand], 100)
+        def bind(mesh):
+            """One device: the reference scores all n_pad rows and masks the
+            pad rows to -inf; with n_cand >= 100 the top 100 of the first
+            n_cand are the same (one launch of distance_topk's k < N path
+            on the card).  On ``mesh``: the candidates over every axis, the
+            request and the query alike on every rank; each rank's valid
+            rows through the kernel, once, and the ranks' lists merged."""
+            if mesh is None:
+                return lambda params, batch, cand_emb: recsys.candidate_scores(
+                    recsys.user_tower(params, batch, cfg), cand_emb[:n_cand], 100)
+            return lambda params, batch, cand_emb: recsys.candidate_scores_sharded(
+                recsys.user_tower(params, batch, cfg, mesh=mesh), cand_emb, 100, mesh=mesh, axes=cand_ax,
+                n_rows=n_pad, n_valid=n_cand)
 
         args = (aparams, bs, _abstract((n_pad, cfg.embed_dim), torch.float32))
         pspecs = (pparams, _recsys_batch_pspecs(bs, Bax), (cand_ax, None))
-        meta["n_candidates"] = n_cand
-        return Cell(arch, shape_id, "retrieval", fn, args, pspecs, meta=meta)
+        meta.update(n_candidates=n_cand, bind=bind, out_pspecs=((None, None), (None, None)))
+        return Cell(arch, shape_id, "retrieval", bind(None), args, pspecs, meta=meta)
 
     raise ValueError(sh["kind"])
 
@@ -417,11 +460,17 @@ class Lowered:
     mesh: Any
     step: Callable
 
+    @property
+    def out_pspecs(self):
+        """The outputs' placements: the reference's ``out_pspecs``, or the
+        port's where the reference sets none (GraphSAGE, recsys)."""
+        return self.cell.out_pspecs if self.cell.out_pspecs is not None else self.cell.meta["out_pspecs"]
+
     def local_args(self, args) -> tuple:
         return local_tree(tuple(args), self.mesh, self.cell.in_pspecs)
 
     def place(self, out):
-        return map_specs(lambda t, ps: _as_dtensor(t, self.mesh, ps), out, self.cell.out_pspecs)
+        return map_specs(lambda t, ps: _as_dtensor(t, self.mesh, ps), out, self.out_pspecs)
 
     def __call__(self, *args):
         return self.place(self.step(*self.local_args(args)))
@@ -444,15 +493,11 @@ def _as_dtensor(t: torch.Tensor, mesh, ps):
 
 def lower_cell(cell: Cell, mesh) -> Lowered:
     """Bind ``cell``'s step to ``mesh`` (a ``DeviceMesh`` whose axis names
-    the cell was built with): its rules carry the mesh, a train step sums
-    its gradients over replica axes (``make_train_step``).  LM cells only:
-    the GraphSAGE and recsys cells have no distribution code in the
-    reference (GSPMD partitions them alone) and raise."""
-    if cell.meta["family"] != "lm":
-        raise NotImplementedError(
-            f"{cell.arch} x {cell.shape}: the {cell.meta['family']} cells on a mesh are not ported "
-            "(the reference leaves them to GSPMD; ROADMAP Queue 1 #13 part 3)")
-    if cell.out_pspecs is None or "bind" not in cell.meta:
+    the cell was built with): the step takes the rank's shards, a train
+    step sums its gradients over replica axes (``make_train_step``).
+    Every family: the LM cells' rules carry the mesh, the GraphSAGE and
+    recsys steps take it (``_gnn_cell``, ``_recsys_cell``)."""
+    if "bind" not in cell.meta or (cell.out_pspecs is None and "out_pspecs" not in cell.meta):
         raise ValueError(f"{cell.arch} x {cell.shape} has no step to bind")
     return Lowered(cell, mesh, cell.meta["bind"](mesh))
 
@@ -547,6 +592,59 @@ def example_inputs(cell: Cell, seed: int = 0, *, device="cuda"):
         else:
             out.append(map_args(concrete, a))
     return tuple(out)
+
+
+def live_inputs(cell: Cell, seed: int = 0, *, device="cuda"):
+    """``example_inputs`` of a GraphSAGE or recsys cell with a batch the
+    step's every path reads, drawn from a ``torch.Generator`` on the device
+    seeded with ``seed + 1``: features and dense fields standard normal,
+    labels uniform over the classes (recsys: 0/1), masks 0/1; a full
+    graph's edges uniform over its real nodes, weight 1 on its real edges
+    and 0 on the pads, its label mask 0 on the pad nodes; a batch of
+    graphs' edges uniform within each graph; each recsys field's ids
+    uniform over the field's vocabulary; retrieval candidates standard
+    normal.  (``example_inputs``' zero features and 0/1 ids leave the
+    message passing and most of the table unread.)"""
+    dev = resolve_device(device)
+    args = list(example_inputs(cell, seed, device=dev))
+    cfg, family = cell.meta["cfg"], cell.meta["family"]
+    if family == "lm":
+        raise ValueError("live_inputs: GraphSAGE and recsys cells only")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    normal = lambda t: torch.randn(t.shape, generator=g, device=dev, dtype=t.dtype)
+    below = lambda t, n: torch.randint(0, n, t.shape, generator=g, device=dev).to(t.dtype)
+    coin = lambda t: below(t, 2)
+    first = lambda t, n: (torch.arange(t.shape[0], device=dev) < n).to(t.dtype)
+    i = 2 if cell.kind == "train" else 1
+    b = args[i]
+    if family == "gnn":
+        out = {"labels": below(b["labels"], cfg.n_classes)}
+        if "hops" in b:
+            out["hops"] = tuple(normal(h) for h in b["hops"])
+        elif "node_mask" in b:
+            n = b["feats"].shape[1]
+            out.update(feats=normal(b["feats"]), edge_src=below(b["edge_src"], n),
+                       edge_dst=below(b["edge_dst"], n), node_mask=coin(b["node_mask"]))
+        else:
+            n = cell.meta["n_nodes"]
+            out.update(feats=normal(b["feats"]), edge_src=below(b["edge_src"], n),
+                       edge_dst=below(b["edge_dst"], n), edge_weight=first(b["edge_weight"], cell.meta["n_edges"]),
+                       label_mask=coin(b["label_mask"]) * first(b["label_mask"], n))
+    else:
+        vocab = torch.tensor(cfg.field_vocabs, dtype=torch.float64, device=dev)
+        field = lambda t, v: (torch.rand(t.shape, generator=g, dtype=torch.float64, device=dev) * v).to(t.dtype)
+        out = {"cat": field(b["cat"], vocab[cfg.seq_fields:])}
+        if "dense" in b:
+            out["dense"] = normal(b["dense"])
+        if "seq" in b:
+            out.update(seq=field(b["seq"], vocab[:cfg.seq_fields]), seq_mask=coin(b["seq_mask"]),
+                       target=field(b["target"], vocab[:cfg.seq_fields]))
+        if "label" in b:
+            out["label"] = coin(b["label"])
+    args[i] = {k: out[k] for k in b}
+    if cell.kind == "retrieval":
+        args[2] = normal(args[2])
+    return tuple(args)
 
 
 def args_from_jax(cell: Cell, ref_args, *, device="cuda"):

@@ -26,14 +26,14 @@ the card's path, to their custom ops' fake kernels, so the trace is the one
 a run on the card takes; the record counts each custom op's calls
 (``kernel_calls``).
 
-``--mesh single|multi|both``: the 20 LM cells on the production meshes
+``--mesh single|multi|both``: the 40 cells on the production meshes
 (16 x 16 = 256 ranks, 2 x 16 x 16 = 512), each traced as one rank of the
 fake process group (``launch.mesh.process_group(backend="fake")``): the
 cell is bound by ``lower_cell``, its args are that rank's shards (rank 0
 by default: the first shard of an uneven cut is the largest, ceil(n /
 ranks)), and its collectives run on fake tensors.  Per cell: the rank's
-argument bytes, its traced peak and its FLOPs.  The GraphSAGE and recsys
-cells have no distribution code (ROADMAP Queue 1 #13 part 3).
+argument bytes, its traced peak, its FLOPs and its kernel calls (a
+``retrieval_cand`` rank: one ``distance_topk``).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from pathlib import Path
 
 import torch
 
-from ..configs import ALL_CELLS, arch_shapes, get_arch
+from ..configs import ALL_CELLS, arch_shapes
 from .cells import arg_leaves, build_cell, lower_cell, map_args
 
 __all__ = ["H100_FIT_BYTES", "run_cell", "run_cell_mesh", "trace_cell", "trace_on_mesh", "main"]
@@ -128,16 +128,13 @@ def run_cell_mesh(arch: str, shape: str, mesh_name: str = "single", *, rank: int
     ``H100_FIT_BYTES``)."""
     from .mesh import make_production_mesh, process_group
 
-    if get_arch(arch)[0] != "lm":
-        raise NotImplementedError(f"{arch}: the GraphSAGE and recsys cells on a mesh are not ported "
-                                  "(ROADMAP Queue 1 #13 part 3)")
     with process_group(rank, MESH_RANKS[mesh_name], backend="fake"):
         mesh = make_production_mesh(mesh_name == "multi")
         cell = build_cell(arch, shape, mesh_axes=mesh.mesh_dim_names)
         rec = {"arch": arch, "shape": shape, "kind": cell.kind, "mesh": "x".join(map(str, mesh.shape)),
                "ranks": mesh.size(), "rank": rank, "coordinate": list(mesh.get_coordinate()),
                "n_params": int(cell.meta["n_params"]), "tokens": int(cell.meta.get("tokens", 0)),
-               "pure_fsdp": bool(cell.meta["cfg"].pure_fsdp), **trace_on_mesh(cell, mesh)}
+               "pure_fsdp": bool(getattr(cell.meta["cfg"], "pure_fsdp", False)), **trace_on_mesh(cell, mesh)}
     rec["fits_h100"] = rec["peak_bytes"] <= H100_FIT_BYTES
     if verbose:
         print(f"[dryrun] {arch:28s} {shape:14s} mesh={rec['mesh']:9s} rank={rank:<3d} "
@@ -210,7 +207,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default=None,
-                    help="trace the LM cells as one rank of the production mesh(es) instead of one device")
+                    help="trace the cells as one rank of the production mesh(es) instead of one device")
     ap.add_argument("--out", default=str(Path(__file__).resolve().parents[3] / "dryrun_out"))
     args = ap.parse_args(argv)
     cells = (list(ALL_CELLS) if args.all
@@ -220,16 +217,12 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.mesh:
-        lm = [(a, s) for a, s in cells if get_arch(a)[0] == "lm"]
-        if len(lm) < len(cells):
-            print(f"[dryrun] {len(cells) - len(lm)} GraphSAGE/recsys cells left out: on a mesh they are not "
-                  "ported (ROADMAP Queue 1 #13 part 3)", flush=True)
         names = ["single", "multi"] if args.mesh == "both" else [args.mesh]
         for name in names:
-            for arch, shape in lm:
+            for arch, shape in cells:
                 rec = run_cell_mesh(arch, shape, name)
                 (out / f"dryrun_{name}_{arch}_{shape}.json").write_text(json.dumps(rec, indent=1))
-        print(f"[dryrun] {len(lm) * len(names)} mesh traces; records in {out}", flush=True)
+        print(f"[dryrun] {len(cells) * len(names)} mesh traces; records in {out}", flush=True)
         return 0
     recs = []
     for arch, shape in cells:

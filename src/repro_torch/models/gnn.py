@@ -17,6 +17,19 @@ again.  The three regimes:
   * batched small graphs (molecule) — per-graph edge lists flattened with
                     node offsets, the same sum, a masked mean-pool readout.
 
+On a mesh (``mesh=``, ``axes=``) each regime takes this rank's shards
+and its loss is the mean over every rank's rows (``softmax_xent`` on the
+mesh).  Full batch: nodes and edges are sharded over the same axes and the
+edge ids index the whole graph, so each layer does what GSPMD does with
+the gather: all-gather ``h`` over the node axes, run the rank's edges
+through ``gather_scatter`` into a whole ``[N, d]`` buffer, and
+reduce-scatter that buffer to the nodes' owners (the degree alike); the
+collectives' transposes give the backward.  Every rank holds the whole
+``[N, d]`` twice a layer (ogbn-products: 1.25 GB at d = 128); a halo
+exchange of the rank's neighbours only would not.  Sampled and batched
+graphs: the batch is sharded over the batch axes and needs no
+collective but the loss's.
+
 On CUDA ``index_add`` sums with atomics: its float32 sums, forward and
 backward, are not deterministic from run to run.  The paper's
 technique (eCP-FS) does not apply to GraphSAGE; this model runs without it.
@@ -29,6 +42,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as C
 from .base import ParamSpec as P
 from .base import init_params as _init_params
 from .layers import softmax_xent
@@ -120,27 +134,37 @@ def gather_scatter(h, src, dst, n: int, *, edge_weight=None, chunk: int = EDGE_C
 
 
 # ------------------------------------------------------------- full batch
-def full_batch_forward(params, feats, edge_src, edge_dst, cfg: GraphSAGEConfig, *, edge_weight=None):
+def full_batch_forward(params, feats, edge_src, edge_dst, cfg: GraphSAGEConfig, *, edge_weight=None, mesh=None,
+                       axes=None, n_nodes: int | None = None):
     """feats [N, d]; edge_src/dst [E] int32 or int64 (messages flow src ->
     dst).
 
     edge_weight [E] (optional): 0-weight edges are padding — node and edge
     arrays are padded to shard-divisible sizes by a launcher, and the
     weights keep padded edges out of both the sum and the degree.
+
+    On ``mesh``: feats are this rank's nodes and the edges its edges, both
+    cut over ``axes`` (``launch.mesh.local_range``), the edge ids global
+    among ``n_nodes``; returns this rank's nodes' logits.
     """
-    n = feats.shape[0]
+    n = feats.shape[0] if mesh is None else n_nodes
     w = (torch.ones(edge_dst.shape, dtype=torch.float32, device=feats.device) if edge_weight is None
          else edge_weight)
     deg = _segment_sum(w, edge_dst, n)
+    if mesh is not None:
+        deg = C.scatter(deg, mesh, axes, 0)
     inv_deg = 1.0 / torch.clamp_min(deg, 1.0)
     h = feats.to(cfg.dtype)
     for lp in params["layers"]:
-        agg = gather_scatter(h, edge_src, edge_dst, n, edge_weight=edge_weight) * inv_deg[:, None]
-        h = _sage_layer(h, agg, lp)
+        src_h = h if mesh is None else C.gather(h, mesh, axes, 0, n)
+        agg = gather_scatter(src_h, edge_src, edge_dst, n, edge_weight=edge_weight)
+        if mesh is not None:
+            agg = C.scatter(agg, mesh, axes, 0)
+        h = _sage_layer(h, agg * inv_deg[:, None], lp)
     return h @ params["w_out"] + params["b_out"]
 
 
-def gnn_loss_full(params, batch, cfg: GraphSAGEConfig):
+def gnn_loss_full(params, batch, cfg: GraphSAGEConfig, *, mesh=None, axes=None, n_nodes: int | None = None):
     logits = full_batch_forward(
         params,
         batch["feats"],
@@ -148,8 +172,11 @@ def gnn_loss_full(params, batch, cfg: GraphSAGEConfig):
         batch["edge_dst"],
         cfg,
         edge_weight=batch.get("edge_weight"),
+        mesh=mesh,
+        axes=axes,
+        n_nodes=n_nodes,
     )
-    return softmax_xent(logits, batch["labels"], mask=batch.get("label_mask")), {}
+    return softmax_xent(logits, batch["labels"], mask=batch.get("label_mask"), mesh=mesh, axes=axes), {}
 
 
 # --------------------------------------------------------------- sampled
@@ -169,9 +196,9 @@ def sampled_forward(params, hops, cfg: GraphSAGEConfig):
     return hs[0] @ params["w_out"] + params["b_out"]
 
 
-def gnn_loss_sampled(params, batch, cfg: GraphSAGEConfig):
+def gnn_loss_sampled(params, batch, cfg: GraphSAGEConfig, *, mesh=None, axes=None):
     logits = sampled_forward(params, batch["hops"], cfg)
-    return softmax_xent(logits, batch["labels"]), {}
+    return softmax_xent(logits, batch["labels"], mesh=mesh, axes=axes), {}
 
 
 # -------------------------------------------------- batched small graphs
@@ -198,8 +225,8 @@ def batched_graph_forward(params, feats, edge_src, edge_dst, node_mask, cfg: Gra
     return pooled @ params["w_out"] + params["b_out"]
 
 
-def gnn_loss_graphs(params, batch, cfg: GraphSAGEConfig):
+def gnn_loss_graphs(params, batch, cfg: GraphSAGEConfig, *, mesh=None, axes=None):
     logits = batched_graph_forward(
         params, batch["feats"], batch["edge_src"], batch["edge_dst"], batch["node_mask"], cfg
     )
-    return softmax_xent(logits, batch["labels"]), {}
+    return softmax_xent(logits, batch["labels"], mesh=mesh, axes=axes), {}

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as C
+
 __all__ = ["rms_norm", "layer_norm", "swiglu", "gelu_mlp", "rope", "dense", "softmax_xent", "bce_logits"]
 
 
@@ -61,21 +63,32 @@ def rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def softmax_xent(logits, labels, *, mask=None):
-    """Mean cross-entropy over valid positions. logits [..., V], labels [...]"""
+def softmax_xent(logits, labels, *, mask=None, mesh=None, axes=None):
+    """Mean cross-entropy over valid positions. logits [..., V], labels [...]
+
+    On ``mesh``: this rank's rows of a batch that ``axes`` split (and the
+    other axes repeat); the mean over every rank's valid rows, each counted
+    once, as ``collectives.mean_of_shares`` builds it from the rank's
+    masked sum and mask sum."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     nll = lse - gold
+    if mesh is not None:
+        if mask is None:
+            return C.mean_of_shares(torch.sum(nll), nll.numel(), mesh, axes)
+        return C.mean_of_shares(torch.sum(nll * mask), torch.sum(mask), mesh, axes)
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
 
 
-def bce_logits(logits, labels):
-    """Binary cross-entropy with logits; mean over batch."""
+def bce_logits(logits, labels, *, mesh=None, axes=None):
+    """Binary cross-entropy with logits; mean over batch (on ``mesh``: over
+    every rank's rows, as ``softmax_xent``'s)."""
     logits = logits.to(torch.float32)
     labels = labels.to(torch.float32)
-    return torch.mean(
-        torch.clamp_min(logits, 0.0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+    loss = torch.clamp_min(logits, 0.0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
+    if mesh is not None:
+        return C.mean_of_shares(torch.sum(loss), loss.numel(), mesh, axes)
+    return torch.mean(loss)

@@ -11,23 +11,35 @@ shapes) or ``index_add_`` (the ragged path, the reference's
 ``candidate_scores`` returns the top k of the candidate embeddings by inner
 product, one launch of the port's ``distance_topk`` kernel on the card
 (its k < N path), the plain version on the CPU.
+
+On a mesh (``mesh=``): the table is sharded by rows over "model" (its
+pspec).  A lookup is masked to the rank's rows, zeros for the others, and
+summed over "model" (the LM's vocabulary-sharded embedding); the batch is
+the rank's rows, and the loss the mean over every rank's
+(``bce_logits`` on the mesh).  ``candidate_scores_sharded`` takes the top k
+of each rank's candidate shard (one ``distance_topk`` launch), gathers the
+ranks' lists and merges them (``merge_topk``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as C
 from ..kernels.distance_topk import ops as topk_ops
+from ..launch.mesh import axis_size, local_range
 from .base import ParamSpec as P
 from .base import init_params as _init_params
 from .layers import bce_logits, layer_norm
 
 __all__ = [
     "RecSysConfig", "param_specs", "init_params", "forward", "recsys_loss", "user_tower",
-    "embedding_lookup", "embedding_bag", "embedding_bag_ragged", "candidate_scores",
+    "embedding_lookup", "embedding_bag", "embedding_bag_ragged", "candidate_scores", "candidate_scores_sharded",
+    "merge_topk", "table_rows",
 ]
 
 
@@ -69,14 +81,36 @@ class RecSysConfig:
 
 
 # ------------------------------------------------------------- embeddings
-def embedding_lookup(table, ids):
-    """ids [...] (already offset into the mega-table) -> [..., dim]."""
-    return table[ids.long()]
+def table_rows(cfg: RecSysConfig) -> int:
+    """The mega-table's rows: padded to a shard-divisible count, as the
+    reference's (model axis <= 512 on its meshes); offsets never address
+    the pad rows."""
+    return -(-cfg.total_vocab // 512) * 512 if cfg.total_vocab > 512 else cfg.total_vocab
 
 
-def embedding_bag(table, ids, mask, *, mode: str = "mean"):
-    """Fixed-shape embedding bag: ids [B, L], mask [B, L] -> [B, dim]."""
-    e = table[ids.long()] * mask[..., None]
+def embedding_lookup(table, ids, *, mesh=None, rows: int | None = None):
+    """ids [...] (already offset into the mega-table) -> [..., dim].
+
+    On ``mesh`` ``table`` is this rank's shard of a ``rows``-row table cut
+    over "model": the rank's rows, zeros for the others, summed over
+    "model"."""
+    ids = ids.long()
+    if mesh is None:
+        return table[ids]
+    lo, hi = local_range(rows, mesh, "model")
+    inside = (ids >= lo) & (ids < hi)
+    if hi > lo:
+        e = torch.where(inside[..., None], table[torch.where(inside, ids - lo, 0)], 0.0)
+    else:   # the sum over no rows: zeros that keep the table in the graph, so
+        # that this rank too runs the backward pass's sum over "model"
+        e = table.sum(0).expand(*ids.shape, table.shape[1])
+    return C.all_reduce(e, mesh, "model")
+
+
+def embedding_bag(table, ids, mask, *, mode: str = "mean", mesh=None, rows: int | None = None):
+    """Fixed-shape embedding bag: ids [B, L], mask [B, L] -> [B, dim] (on
+    ``mesh``: of a row-sharded table, as ``embedding_lookup``)."""
+    e = embedding_lookup(table, ids, mesh=mesh, rows=rows) * mask[..., None]
     if mode == "sum":
         return e.sum(1)
     if mode == "mean":
@@ -122,10 +156,7 @@ def param_specs(cfg: RecSysConfig):
     """One flat dict of ``ParamSpec``, the reference's names and shapes."""
     dt = cfg.dtype
     d = cfg.embed_dim
-    # table rows padded to a shard-divisible count, as the reference's
-    # (model axis <= 512 on its meshes); offsets never address the pad rows
-    rows = -(-cfg.total_vocab // 512) * 512 if cfg.total_vocab > 512 else cfg.total_vocab
-    specs: dict = {"table": P((rows, d), dt, ("model", None), "embed")}
+    specs: dict = {"table": P((table_rows(cfg), d), dt, ("model", None), "embed")}
     seq_d = d * cfg.seq_fields
     if cfg.interaction == "transformer-seq":  # BST
         dm = seq_d
@@ -264,7 +295,7 @@ def _ids(batch, key, device):
     return torch.as_tensor(batch[key], device=device)
 
 
-def forward(params, batch, cfg: RecSysConfig):
+def forward(params, batch, cfg: RecSysConfig, *, mesh=None):
     """batch fields (numpy or tensors; ids are RAW per field, offsets
     applied here):
        "cat": [B, n_fields - seq_fields] non-sequence categorical ids
@@ -272,18 +303,20 @@ def forward(params, batch, cfg: RecSysConfig):
        "seq_mask": [B, seq_len]
        "target": [B, seq_fields] target item ids (BST/DIEN)
        "dense": [B, n_dense]
-    Returns logits [B] on the parameters' device.
+    Returns logits [B] on the parameters' device.  On ``mesh``: the
+    table is the rank's row shard, the batch the rank's rows.
     """
     table = params["table"]
     dev = table.device
+    lookup = partial(embedding_lookup, mesh=mesh, rows=table_rows(cfg))
     offs = torch.tensor(cfg.field_offsets, dtype=torch.int64, device=dev)
     cat = _ids(batch, "cat", dev).long()
 
     if cfg.interaction in ("transformer-seq", "augru"):
         seq, tgt = _ids(batch, "seq", dev).long(), _ids(batch, "target", dev).long()
-        seq_e = embedding_lookup(table, seq + offs[None, None, : cfg.seq_fields]).reshape(*seq.shape[:2], -1)
-        tgt_e = embedding_lookup(table, tgt + offs[None, : cfg.seq_fields]).reshape(tgt.shape[0], -1)
-        plain = embedding_lookup(table, cat + offs[None, cfg.seq_fields :]).reshape(cat.shape[0], -1)
+        seq_e = lookup(table, seq + offs[None, None, : cfg.seq_fields]).reshape(*seq.shape[:2], -1)
+        tgt_e = lookup(table, tgt + offs[None, : cfg.seq_fields]).reshape(tgt.shape[0], -1)
+        plain = lookup(table, cat + offs[None, cfg.seq_fields :]).reshape(cat.shape[0], -1)
     if cfg.interaction == "transformer-seq":
         x = torch.cat([seq_e, tgt_e[:, None, :]], dim=1)             # [B, S+1, dm]
         x = x + params["pos_embed"][None, : x.shape[1]]
@@ -302,14 +335,14 @@ def forward(params, batch, cfg: RecSysConfig):
         feat = torch.cat([hs2[:, -1], plain, tgt_e], dim=-1)
         h = _mlp_apply(params, feat, len(cfg.mlp), "mlp_", final_act=True)
     elif cfg.interaction == "self-attn":
-        x = embedding_lookup(table, cat + offs[None, :])             # [B, F, d]
+        x = lookup(table, cat + offs[None, :])                       # [B, F, d]
         H, da = cfg.n_heads, cfg.d_attn
         x = _autoint_block(x, params["wq"][0], params["wk"][0], params["wv"][0], params["w_res"][0], H, da)
         for i in range(cfg.n_blocks - 1):
             x = _autoint_block(x, params["wq2"][i], params["wk2"][i], params["wv2"][i], params["w_res2"][i], H, da)
         h = _mlp_apply(params, x.reshape(x.shape[0], -1), len(cfg.mlp), "mlp_", final_act=True)
     elif cfg.interaction == "cross":
-        emb = embedding_lookup(table, cat + offs[None, :]).reshape(cat.shape[0], -1)
+        emb = lookup(table, cat + offs[None, :]).reshape(cat.shape[0], -1)
         x0 = torch.cat([_ids(batch, "dense", dev).to(emb.dtype), emb], dim=-1)
         x = x0
         for i in range(cfg.n_cross_layers):
@@ -322,15 +355,17 @@ def forward(params, batch, cfg: RecSysConfig):
     return (h @ params["w_head"] + params["b_head"])[:, 0]
 
 
-def recsys_loss(params, batch, cfg: RecSysConfig):
-    """(mean binary cross-entropy of the logits against batch["label"], {})."""
-    logits = forward(params, batch, cfg)
-    return bce_logits(logits, _ids(batch, "label", logits.device)), {}
+def recsys_loss(params, batch, cfg: RecSysConfig, *, mesh=None, axes=None):
+    """(mean binary cross-entropy of the logits against batch["label"], {});
+    on ``mesh`` over the rows of every rank, the batch split over ``axes``."""
+    logits = forward(params, batch, cfg, mesh=mesh)
+    return bce_logits(logits, _ids(batch, "label", logits.device), mesh=mesh, axes=axes), {}
 
 
 # ---------------------------------------------------------- retrieval cand
-def user_tower(params, batch, cfg: RecSysConfig):
-    """Query embedding for retrieval scoring: mean field embedding -> proj."""
+def user_tower(params, batch, cfg: RecSysConfig, *, mesh=None):
+    """Query embedding for retrieval scoring: mean field embedding -> proj
+    (on ``mesh`` from the rank's table shard, alike on every rank)."""
     table = params["table"]
     dev = table.device
     offs = torch.tensor(cfg.field_offsets, dtype=torch.int64, device=dev)
@@ -338,10 +373,10 @@ def user_tower(params, batch, cfg: RecSysConfig):
         seq = _ids(batch, "seq", dev).long()
         ids = (seq + offs[None, None, : cfg.seq_fields]).reshape(seq.shape[0], -1)
         mask = torch.repeat_interleave(_ids(batch, "seq_mask", dev), cfg.seq_fields, dim=-1)
-        e = embedding_bag(table, ids, mask, mode="mean")
+        e = embedding_bag(table, ids, mask, mode="mean", mesh=mesh, rows=table_rows(cfg))
     else:
         cat = _ids(batch, "cat", dev).long()
-        e = embedding_lookup(table, cat + offs[None, : cat.shape[1]]).mean(1)
+        e = embedding_lookup(table, cat + offs[None, : cat.shape[1]], mesh=mesh, rows=table_rows(cfg)).mean(1)
     return e @ params["w_ret"]
 
 
@@ -355,3 +390,40 @@ def candidate_scores(query, cand_emb, k: int):
     """
     d, i = topk_ops.distance_topk(query, cand_emb, k, "ip")
     return -d, i
+
+
+def merge_topk(scores, ids, k: int):
+    """The top k of candidate lists: scores [B, M] (higher first), ids
+    [B, M] int32 global; pads (-inf, -1) anywhere.  By score descending,
+    ties to the lower id (as the kernel and ``lax.top_k`` break them), the
+    pads last: a stable sort on the id, then a stable sort on -score
+    (``torch.topk`` leaves the order among ties unspecified).  Returns
+    ([B, k], [B, k]), ``(-inf, -1)`` where fewer than k are real."""
+    pad = ids < 0
+    by_id = torch.sort(torch.where(pad, torch.iinfo(torch.int32).max, ids), dim=-1, stable=True).indices
+    scores, ids, pad = scores.gather(-1, by_id), ids.gather(-1, by_id), pad.gather(-1, by_id)
+    order = torch.sort(torch.where(pad, torch.inf, -scores), dim=-1, stable=True).indices[:, :k]
+    return scores.gather(-1, order), ids.gather(-1, order)
+
+
+def candidate_scores_sharded(query, cand_shard, k: int, *, mesh, axes, n_rows: int, n_valid: int):
+    """``candidate_scores`` over candidates whose ``n_rows`` rows are
+    sharded over ``axes``, the first ``n_valid`` of them real: query [B, d]
+    alike on every rank, ``cand_shard`` this rank's rows
+    (``launch.mesh.local_range``).  The rank takes the top k of its valid
+    rows (one ``distance_topk`` launch; none where it holds no valid row),
+    offsets the ids to global ones, gathers every rank's list over
+    ``axes`` and merges them (``merge_topk``); a rank with fewer than k
+    valid rows gives (-inf, -1) pads, which the merge puts last.  The
+    result is the same on every rank."""
+    lo, hi = local_range(n_rows, mesh, axes)
+    nv = max(0, min(hi, n_valid) - lo)
+    B = query.shape[0]
+    if nv:
+        s, i = candidate_scores(query, cand_shard[:nv], k)
+        i = torch.where(i >= 0, i + lo, -1).to(torch.int32)
+    else:
+        s = torch.full((B, k), -torch.inf, dtype=torch.float32, device=query.device)
+        i = torch.full((B, k), -1, dtype=torch.int32, device=query.device)
+    n = k * axis_size(mesh, axes)
+    return merge_topk(C.gather(s, mesh, axes, 1, n), C.gather(i, mesh, axes, 1, n), k)

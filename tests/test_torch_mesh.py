@@ -13,9 +13,13 @@ from the reference's partition specs with each dimension cut ceil(n /
 shards) (rank 0's share: the reference's ``dryrun.py`` floors, GSPMD
 pads), and at Hq = 24 over 16 model ranks rank 0 (2 heads) launches the
 flash kernel once a layer and the mesh's last rank (model index 15, past
-the 12th) holds no head and launches nothing.  The
-GraphSAGE and recsys cells on a mesh raise naming ROADMAP Queue 1 #13
-part 3.
+the 12th) holds no head and launches nothing.  The 20 GraphSAGE and
+recsys cells at full size trace as rank 0 of 256 ranks, and one cell of
+each regime (full graph, sampled, batched graphs, recsys train, serve,
+retrieval) as rank 0 of 512: the rank's argument bytes by the same
+reckoning, its traced peak within the 72 GiB line, one ``distance_topk``
+call on a ``retrieval_cand`` rank and no kernel elsewhere.  And
+``recsys.merge_topk``: ties to the lower id, pads last.
 """
 from dataclasses import replace
 
@@ -33,6 +37,10 @@ from repro_torch.launch.mesh import batch_axes_of, chunk_range, local_range, mak
 MESHES = {"single": (256, (16, 16), ("data", "model")), "multi": (512, (2, 16, 16), ("pod", "data", "model"))}
 TRACED = (("phi4-mini-3.8b", "prefill_32k"), ("phi4-mini-3.8b", "decode_32k"), ("llama4-scout-17b-a16e", "train_4k"))
 OTHER_CELLS = [(a, s) for a, s in ALL_CELLS if get_arch(a)[0] != "lm"]
+# one cell of each regime on the multi-pod mesh
+OTHER_MULTI = [("graphsage-reddit", "ogb_products"), ("graphsage-reddit", "minibatch_lg"),
+               ("graphsage-reddit", "molecule"), ("bst", "train_batch"), ("bst", "serve_bulk"),
+               ("bst", "retrieval_cand")]
 
 
 @pytest.mark.parametrize("name", ["single", "multi"])
@@ -127,16 +135,45 @@ def test_mesh_traces_hold_the_ceil_shards(name, arch, shape):
         assert recs[0]["kernel_calls"] == {}
 
 
+def _graph_recsys_trace(arch, shape, name):
+    ranks, shape_, axes = MESHES[name]
+    pc = PC.build_cell(arch, shape, mesh_axes=axes)
+    rc = RC.build_cell(arch, shape, mesh_axes=axes)
+    with process_group(0, ranks, backend="fake"):
+        rec = dryrun.trace_on_mesh(pc, make_production_mesh(name == "multi"))
+    assert rec["arg_bytes"] == _ceil_bytes(rc.args, rc.in_pspecs, dict(zip(axes, shape_)))
+    assert rec["arg_bytes"] <= rec["peak_bytes"] <= dryrun.H100_FIT_BYTES and rec["flops_traced"] > 0
+    assert rec["kernel_calls"] == ({"distance_topk": 1} if shape == "retrieval_cand" else {}), rec["kernel_calls"]
+    return rec
+
+
 @pytest.mark.parametrize("arch,shape", OTHER_CELLS)
-def test_graph_and_recsys_cells_on_a_mesh_raise(arch, shape):
-    cell = PC.build_cell(arch, shape, mesh_axes=("data", "model"))
-    with pytest.raises(NotImplementedError, match="Queue 1 #13 part 3"):
-        PC.lower_cell(cell, None)
+def test_graph_and_recsys_cells_trace_on_the_single_pod_mesh(arch, shape):
+    rec = _graph_recsys_trace(arch, shape, "single")
+    if shape == "ogb_products":
+        # each layer all-gathers h: [2 449 408, 128] float32 (1.25 GB) on every rank
+        assert rec["peak_bytes"] > 2_449_408 * 128 * 4
+
+
+@pytest.mark.parametrize("arch,shape", OTHER_MULTI)
+def test_graph_and_recsys_cells_trace_on_the_multi_pod_mesh(arch, shape):
+    _graph_recsys_trace(arch, shape, "multi")
+
+
+def test_merge_topk_breaks_ties_to_the_lower_id_and_puts_pads_last():
+    from repro_torch.models.recsys import merge_topk
+
+    inf = float("inf")
+    # three ranks' lists, each sorted as the kernel returns them; rank 2 short
+    scores = torch.tensor([[5.0, 3.0, 3.0, 4.0, 3.0, 1.0, 5.0, 3.0, -inf]])
+    ids = torch.tensor([[7, 2, 9, 40, 33, 41, 80, 81, -1]], dtype=torch.int32)
+    s, i = merge_topk(scores, ids, 6)
+    assert s.tolist() == [[5.0, 5.0, 4.0, 3.0, 3.0, 3.0]] and i.tolist() == [[7, 80, 40, 2, 9, 33]]
+    s, i = merge_topk(scores[:, 6:], ids[:, 6:], 3)       # fewer real entries than k: pads stay last
+    assert s.tolist() == [[5.0, 3.0, -inf]] and i.tolist() == [[80, 81, -1]]
 
 
 def test_dry_run_on_a_mesh_takes_the_lm_cells_only():
-    with pytest.raises(NotImplementedError, match="Queue 1 #13 part 3"):
-        dryrun.run_cell_mesh("graphsage-reddit", "full_graph_sm", "single")
     rec = dryrun.run_cell_mesh("phi4-mini-3.8b", "long_500k", "multi", verbose=False)
     assert (rec["mesh"], rec["ranks"], rec["rank"], rec["coordinate"]) == ("2x16x16", 512, 0, [0, 0, 0])
     assert rec["fits_h100"] and rec["kernel_calls"] == {}

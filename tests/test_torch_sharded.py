@@ -20,12 +20,21 @@ One ``torch.multiprocessing`` start of 8 gloo ranks (one thread each, a
 * cells through ``lower_cell``: the pure-FSDP train cell (phi4-mini,
   reduced, batch 256), llama4-scout's train cell (sequence parallel,
   expert parallel), qwen2-7b's prefill, decode and long_500k cells, each
-  against the same cell's step on one device.
+  against the same cell's step on one device;
+* the 20 reduced GraphSAGE and recsys cells through ``lower_cell`` (the
+  sharded gather-scatter, the row-sharded table, the candidate top-k over
+  sharded candidates) from the reference's parameters and a live batch
+  (``cells.live_inputs``), against the same cell's step on one device and
+  against the reference's ``lower_cell`` (GSPMD) on the same inputs: a
+  train cell's loss, updated parameters and AdamW state, a serve cell's
+  probabilities, ``retrieval_cand``'s scores and ids (ids equal);
+* the sharded candidate top-k at its edges: shards with fewer valid rows
+  than k or none, k above every shard's rows, and ties across shards.
 
 Each check is held against the port's single-device functions on the
-same inputs; the reference's four also against the reference's sharded
-outputs, which a JAX subprocess computes meanwhile on 8 host devices with
-an Auto-axis mesh (``jax.make_mesh`` builds Explicit axes by default, on
+same inputs; the reference's four and the 20 GraphSAGE and recsys cells
+also against the reference's sharded outputs, which a JAX subprocess
+computes meanwhile on 8 host devices with an Auto-axis mesh (``jax.make_mesh`` builds Explicit axes by default, on
 which the reference's sharded ``lm_loss`` does not trace).  Tolerances are
 the reference's: 1e-5 (loss, gradients, outputs) and 1e-6 (caches,
 centroids); the cells' as ``tests/test_torch_cells_lm.py``'s.
@@ -42,12 +51,15 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from repro_torch.configs import ALL_CELLS, get_arch
+
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, MESH, AXES = 8, (2, 4), ("data", "model")
 TOL, CACHE_TOL = 1e-5, 1e-6
 RETR_POS, FUSED_POS = (5, 37, 128), (0, 36, 99)
 CELL_TOL = 2e-5
 SPAWN_TIMEOUT_S = 600
+GR_CELLS = [(a, s) for a, s in ALL_CELLS if get_arch(a)[0] != "lm"]
 
 _ORACLE = r"""
 import os, pickle, sys
@@ -101,6 +113,20 @@ for pos in (0, 36, 99):
             q, jax.device_put(kc, sh(None, None, seq, None, None)), jax.device_put(vc, sh(None, None, seq, None, None)),
             jax.device_put(cent, sh(None, None, seq, None)), kn, vn, jnp.asarray(pos))
     out["fused"][pos] = tuple(np.asarray(a) for a in (o, ks, vs, cs_o))
+from repro.launch import cells as RC
+is_ps = lambda x: isinstance(x, P)
+out["cells_gr"] = {}
+for (arch, shape), args in inp["cells_gr"].items():
+    try:
+        cell = RC.build_cell(arch, shape, mesh_axes=("data", "model"), reduced=True)
+        compiled = RC.lower_cell(cell, mesh).compile()
+        placed = jax.tree.map(lambda ps, x: jax.device_put(jnp.asarray(x), NamedSharding(mesh, ps)),
+                              cell.in_pspecs, args, is_leaf=is_ps)
+        with set_mesh(mesh):
+            res = compiled(*placed)
+        out["cells_gr"][(arch, shape)] = jax.tree.map(np.asarray, res)
+    except Exception as e:      # kept for the test to report: where GSPMD does not take the cell
+        out["cells_gr"][(arch, shape)] = f"{type(e).__name__}: {str(e)[:500]}"
 pickle.dump(out, open(os.path.join(sys.argv[2], "reference.pkl"), "wb"))
 print("ORACLE_OK")
 """
@@ -131,7 +157,30 @@ def _make_inputs(tmp: Path) -> None:
     r["kn"] = rng.normal(size=(B, Hkv, d)).astype(np.float32)
     r["vn"] = rng.normal(size=(B, Hkv, d)).astype(np.float32)
     inp["retrieval"] = r
+    inp["cells_gr"] = _graph_recsys_inputs()
     (tmp / "inputs.pkl").write_bytes(pickle.dumps(inp))
+
+
+def _graph_recsys_inputs() -> dict:
+    """Each reduced GraphSAGE and recsys cell's inputs as numpy: the
+    reference's parameters (``example_inputs``, ``jax.random.key(0)``) and
+    AdamW state, and the port's live batch and candidates
+    (``live_inputs``, seed 0)."""
+    import jax
+
+    from repro.launch import cells as RC
+    from repro_torch.launch import cells as PC
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for arch, shape in GR_CELLS:
+        rc = RC.build_cell(arch, shape, mesh_axes=AXES, reduced=True)
+        pc = PC.build_cell(arch, shape, mesh_axes=AXES, reduced=True)
+        ref = jax.tree.map(np.asarray, RC.example_inputs(rc, 0))
+        live = PC.live_inputs(pc, 0, device="cpu")
+        n = 2 if pc.kind == "train" else 1
+        out[(arch, shape)] = tuple(ref[:n]) + tuple(tree_map(lambda t: t.numpy(), a) for a in live[n:])
+    return out
 
 
 # ----------------------------------------------------------------- the ranks
@@ -367,6 +416,55 @@ def _cell_checks(mesh, out):
     out["cells"] = res
 
 
+def _graph_recsys_checks(inp, mesh, out):
+    """The 20 GraphSAGE and recsys cells: each one-device step and, bound by
+    ``lower_cell``, its step on the mesh, each from its own copy of the
+    same inputs (the train steps update them in place); the outputs laid
+    out by ``Lowered.out_pspecs``, made whole."""
+    from repro_torch.distributed.elastic import map_specs
+    from repro_torch.launch import cells as PC
+
+    res = {}
+    for (arch, shape), args in inp["cells_gr"].items():
+        one = PC.build_cell(arch, shape, mesh_axes=None, reduced=True)
+        cell = PC.build_cell(arch, shape, mesh_axes=AXES, reduced=True)
+        low = PC.lower_cell(cell, mesh)
+        o1 = one.fn(*PC.args_from_jax(one, args, device="cpu"))
+        om = low(*PC.args_from_jax(cell, args, device="cpu"))
+        res[(arch, shape)] = {"one": map_specs(lambda t, ps: _np(t), o1, low.out_pspecs),
+                              "mesh": map_specs(lambda t, ps: _np(t.full_tensor()), om, low.out_pspecs),
+                              "kind": cell.kind}
+    out["cells_gr"] = res
+
+
+TOPK_EDGES = {  # name: (candidate rows, valid rows, k, distinct rows tiled)
+    "short_shards": (1024, 850, 100, None),      # ranks 6 and 7: 82 valid rows and none
+    "k_past_every_shard": (128, 128, 100, None),  # 16 rows a rank, k = 100
+    "ties_across_shards": (1024, 1000, 100, 40),  # 40 distinct rows, each on many shards
+}
+
+
+def _topk_edge_checks(mesh, out):
+    """``candidate_scores_sharded`` over candidates cut over ("data",
+    "model") against ``candidate_scores`` over the valid rows on one
+    device (the plain version: ties to the lower index)."""
+    from repro_torch.launch.mesh import local_shard
+    from repro_torch.models import recsys
+
+    res = {}
+    for name, (n, nv, k, distinct) in TOPK_EDGES.items():
+        g = torch.Generator().manual_seed(n + nv)
+        cand = torch.randn((distinct or n, 8), generator=g)
+        if distinct:
+            cand = cand.repeat(-(-n // distinct), 1)[:n]
+        q = torch.randn((1, 8), generator=g)
+        one = recsys.candidate_scores(q, cand[:nv], k)
+        got = recsys.candidate_scores_sharded(q, local_shard(cand, mesh, (AXES, None)), k, mesh=mesh, axes=AXES,
+                                              n_rows=n, n_valid=nv)
+        res[name] = {"one": tuple(map(_np, one)), "mesh": tuple(map(_np, got))}
+    out["topk_edges"] = res
+
+
 def _rank(rank: int, tmp: str) -> None:
     torch.set_num_threads(1)
     from torch.distributed.device_mesh import init_device_mesh
@@ -383,7 +481,9 @@ def _rank(rank: int, tmp: str) -> None:
                             ("uneven", lambda: _uneven_checks(mesh, out)),
                             ("collectives", lambda: _collective_checks(mesh, out)),
                             ("reshard", lambda: _reshard_checks(mesh, out)),
-                            ("cells", lambda: _cell_checks(mesh, out))):
+                            ("cells", lambda: _cell_checks(mesh, out)),
+                            ("graph_recsys", lambda: _graph_recsys_checks(inp, mesh, out)),
+                            ("topk_edges", lambda: _topk_edge_checks(mesh, out))):
             t0 = time.perf_counter()
             check()
             out["seconds"][name] = time.perf_counter() - t0
@@ -520,3 +620,70 @@ def test_lowered_cells_match_one_device(runs, arch, shape, batch):
     for i, (a, b) in enumerate(zip(mesh, one, strict=True)):
         assert np.shape(a) == np.shape(b), (i, np.shape(a), np.shape(b))
         assert _err(a, b) <= CELL_TOL * max(1.0, float(np.max(np.abs(b))) if np.size(b) else 1.0), (i, _err(a, b))
+
+
+TINY_GRAD = 1e-6
+
+
+def _held_cell(what, got, want, lr=None):
+    """Every leaf within CELL_TOL of the largest, integers equal.  ``lr``: a
+    train step's outputs (params, mu, nu, step, loss); a parameter entry
+    whose gradient is below TINY_GRAD (``mu`` = 0.1 g) may also be 2 lr
+    off: AdamW's first update is about lr · sign(g), and so small a
+    gradient may take the other sign in another summation order
+    (``tests/test_torch_cells_lm.py`` holds the reference's steps alike)."""
+    n_par = (len(want) - 2) // 3 if lr else 0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        assert np.shape(a) == np.shape(b), (what, i, np.shape(a), np.shape(b))
+        if np.issubdtype(np.asarray(b).dtype, np.integer):
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} leaf {i}")
+            continue
+        tol = CELL_TOL * max(1.0, float(np.max(np.abs(b))) if np.size(b) else 1.0)
+        if i < n_par:
+            tiny = np.abs(np.asarray(want[n_par + i], np.float64)) / 0.1 < TINY_GRAD
+            tol = tol + np.where(tiny, 2 * lr, 0.0)
+        err = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+        assert (err <= tol).all(), (what, i, float(err.max()))
+
+
+@pytest.mark.parametrize("arch,shape", GR_CELLS, ids=[f"{a}-{s}" for a, s in GR_CELLS])
+def test_graph_and_recsys_cells_on_the_mesh(runs, arch, shape):
+    """The cell through ``lower_cell`` on the (2, 4) mesh against its step on
+    one device and against the reference's GSPMD lowering of the same
+    inputs: a train cell's loss, parameters and AdamW state after the step
+    (the replicated-rows trap: a batch-sharded cell's "model" replicas
+    counted 4 times would move every one), a serve cell's probabilities,
+    ``retrieval_cand``'s scores (and its ids equal).  Every rank holds the
+    same whole outputs."""
+    port, ref = runs
+    r = port[0]["cells_gr"][(arch, shape)]
+    mesh, one = _leaves(r["mesh"]), _leaves(r["one"])
+    lr = (3e-3 if arch.startswith("graphsage") else 1e-3) if r["kind"] == "train" else None
+    _held_cell("mesh vs one device", mesh, one, lr)
+    for p in port[1:]:
+        _held_cell("rank vs rank 0", _leaves(p["cells_gr"][(arch, shape)]["mesh"]), mesh)
+    gspmd = ref["cells_gr"][(arch, shape)]
+    assert not isinstance(gspmd, str), f"the reference's lower_cell on the Auto-axis mesh: {gspmd}"
+    _held_cell("mesh vs the reference's GSPMD", mesh, _leaves(gspmd), lr)
+    if r["kind"] == "train":
+        assert float(r["mesh"][2]["loss"]) > 0 and int(r["mesh"][1]["step"]) == 1
+
+
+@pytest.mark.parametrize("name", list(TOPK_EDGES))
+def test_sharded_candidate_topk_edges(runs, name):
+    """Shards with fewer valid rows than k (their (-inf, -1) pads dropped)
+    or none, k above every shard's rows, and ties across shards (to the
+    lower global id): ids equal to one device's, scores within 1e-6."""
+    port, _ = runs
+    r = port[0]["topk_edges"][name]
+    (s1, i1), (sm, im) = r["one"], r["mesh"]
+    np.testing.assert_array_equal(im, i1)
+    assert _err(sm, s1) <= 1e-6 and (im >= 0).all()
+    if name == "ties_across_shards":
+        n, nv, k, distinct = TOPK_EDGES[name]
+        s = np.asarray(s1[0], np.float64)
+        # each score repeated over its tiles, lower ids first
+        assert len(set(s.tolist())) <= -(-k // (nv // distinct)) + 1 and all(
+            i1[0][j] < i1[0][j + 1] for j in range(k - 1) if s[j] == s[j + 1])
+    for p in port[1:]:
+        np.testing.assert_array_equal(p["topk_edges"][name]["mesh"][1], im)
