@@ -34,6 +34,7 @@ from typing import Protocol, runtime_checkable
 
 import numpy as np
 
+from .. import tracing
 from ..device import resolve_device
 from .store import IOStats
 
@@ -544,12 +545,14 @@ def open_index(
     from .packed import load_packed
     from .store import open_store
 
-    store = open_store(path, backend=backend)
-    try:
-        packed = load_packed(store)
-    finally:
-        store.close()
-    return batched.BatchedSearcher(packed, device=device, **kw)
+    with tracing.phase("ecpfs.open.load"):  # read and padded on the host
+        store = open_store(path, backend=backend)
+        try:
+            packed = load_packed(store)
+        finally:
+            store.close()
+    with tracing.phase("ecpfs.open.upload"):  # onto the device, normalised
+        return batched.BatchedSearcher(packed, device=device, **kw)
 
 
 # ------------------------------------------------------------------ session

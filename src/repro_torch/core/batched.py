@@ -28,6 +28,16 @@ at load (the arithmetic the reference repeats on every scan); for l2 the
 rows' squared norms are computed once.  The distances are the reference's
 ``jnp_distances`` einsums as float32 products; no custom kernel runs here,
 in either package.
+
+The host waits for the device (on a GPU) at four sites, each counted as
+``ecpfs.packed.host_syncs`` while tracing is on (``repro_torch.tracing``):
+the upload of queries that arrive in host memory; ``torch.unique``'s
+data-dependent size, once per scan chunk; ``_advance``'s test, once per
+loop pass; and ``_result``'s three copies back.  A search passes the
+upload, one ``torch.unique`` per chunk, one test per pass and the three
+copies; a ``next`` the same without the upload.  The stages' spans are
+``ecpfs.packed.upload``, ``.rank``, ``.score``, ``.merge``, ``.advance``
+(its test ``.advance.wait``), ``.emit`` and ``.result``.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from .api import Query, ResultSet, SearchStats
 from .distances import _check
@@ -169,67 +180,72 @@ class BatchedSearcher:
     @torch.no_grad()
     def rank_leaves(self, q: torch.Tensor, b_internal: int):
         """[B, D] queries -> ranked candidate leaves [B, R] (+ distances)."""
-        B = q.shape[0]
-        qp, q_sq = _prep_queries(q, self.metric)
-        d = _distances(qp, q_sq, self.root.emb, self.root.sq, self.metric)  # [B, n1]
-        n1 = d.shape[-1]
-        if not self.int_rows:  # L == 1: root children are the leaves
-            order = torch.sort(d, dim=-1, stable=True).indices
-            return order, torch.gather(d, -1, order)
-        b = min(b_internal, n1)
-        ar = torch.arange(n1, device=d.device).expand(B, n1)
-        node_d, node = self._topk(d, ar, b)
-        rows_b = torch.arange(B, device=d.device)[:, None]
-        for li, (r, maxc, ids, mask) in enumerate(
-            zip(self.int_rows, self.int_maxc, self.int_ids, self.int_mask)
-        ):
-            full = _distances(qp, q_sq, r.emb, r.sq, self.metric).view(B, -1, maxc)
-            cd = full[rows_b, node]                                 # [B, b, maxc]
-            cm = mask[node]
-            cd = torch.where(cm, cd, torch.inf)
-            cid = torch.where(cm, ids[node], -1)
-            flat_d = cd.reshape(B, -1)
-            flat_i = cid.reshape(B, -1)
-            if li == len(self.int_rows) - 1:
-                order = torch.sort(flat_d, dim=-1, stable=True).indices  # rank ALL leaves seen
-                return torch.gather(flat_i, -1, order), torch.gather(flat_d, -1, order)
-            bb = min(b_internal, flat_d.shape[-1])
-            node_d, node = self._topk(flat_d, flat_i, bb)
-            node = torch.clamp(node, min=0)                         # guard -1 pads
-        raise AssertionError("unreachable")
+        with tracing.span("ecpfs.packed.rank", device=self.device):
+            B = q.shape[0]
+            qp, q_sq = _prep_queries(q, self.metric)
+            d = _distances(qp, q_sq, self.root.emb, self.root.sq, self.metric)  # [B, n1]
+            n1 = d.shape[-1]
+            if not self.int_rows:  # L == 1: root children are the leaves
+                order = torch.sort(d, dim=-1, stable=True).indices
+                return order, torch.gather(d, -1, order)
+            b = min(b_internal, n1)
+            ar = torch.arange(n1, device=d.device).expand(B, n1)
+            node_d, node = self._topk(d, ar, b)
+            rows_b = torch.arange(B, device=d.device)[:, None]
+            for li, (r, maxc, ids, mask) in enumerate(
+                zip(self.int_rows, self.int_maxc, self.int_ids, self.int_mask)
+            ):
+                full = _distances(qp, q_sq, r.emb, r.sq, self.metric).view(B, -1, maxc)
+                cd = full[rows_b, node]                                 # [B, b, maxc]
+                cm = mask[node]
+                cd = torch.where(cm, cd, torch.inf)
+                cid = torch.where(cm, ids[node], -1)
+                flat_d = cd.reshape(B, -1)
+                flat_i = cid.reshape(B, -1)
+                if li == len(self.int_rows) - 1:
+                    order = torch.sort(flat_d, dim=-1, stable=True).indices  # rank ALL leaves seen
+                    return torch.gather(flat_i, -1, order), torch.gather(flat_d, -1, order)
+                bb = min(b_internal, flat_d.shape[-1])
+                node_d, node = self._topk(flat_d, flat_i, bb)
+                node = torch.clamp(node, min=0)                         # guard -1 pads
+            raise AssertionError("unreachable")
 
     # ------------------------------------------------------------- stage 2
     def _leaf_dists(self, q: torch.Tensor, leaf_c: torch.Tensor) -> torch.Tensor:
         """Distances of each query to every row of its visited leaves:
         ``[B, D]`` x ``leaf_c [B, b]`` -> ``[B, b, cap]``."""
-        B, b = leaf_c.shape
-        cap, D = self.leaf.emb.shape[1], self.leaf.emb.shape[2]
-        if self._scorer is not None:
-            # the reference's call: each query against its own gathered
-            # leaves, in blocks of queries that fit the budget
-            qb = max(1, self.scan_budget_bytes // max(1, b * cap * D * 4))
-            parts = [
-                self._scorer(q[lo : lo + qb], self.leaf.emb[leaf_c[lo : lo + qb]].reshape(-1, b * cap, D))
-                for lo in range(0, B, qb)
-            ]
-            return torch.cat(parts).view(B, b, cap)
-        qp, q_sq = _prep_queries(q, self.metric)
-        u, inv = torch.unique(leaf_c, return_inverse=True)          # distinct visited leaves
-        ub = max(1, self.scan_budget_bytes // (cap * (D + B) * 4))
-        rows_b = torch.arange(B, device=q.device)[:, None]
-        out = None
-        for lo in range(0, u.numel(), ub):
-            blk = u[lo : lo + ub]
-            sq = None if self.leaf.sq is None else self.leaf.sq[blk].reshape(-1)
-            d = _distances(qp, q_sq, self.leaf.emb[blk].reshape(-1, D), sq, self.metric)
-            d = d.view(B, -1, cap)
-            if lo == 0 and blk.numel() == u.numel():
-                return d[rows_b, inv]
-            rel = torch.clamp(inv - lo, 0, blk.numel() - 1)
-            part = d[rows_b, rel]
-            inside = ((inv >= lo) & (inv < lo + blk.numel()))[..., None]
-            out = part if out is None else torch.where(inside, part, out)
-        return out
+        with tracing.span("ecpfs.packed.score", device=self.device):
+            B, b = leaf_c.shape
+            cap, D = self.leaf.emb.shape[1], self.leaf.emb.shape[2]
+            if self._scorer is not None:
+                # the reference's call: each query against its own gathered
+                # leaves, in blocks of queries that fit the budget
+                qb = max(1, self.scan_budget_bytes // max(1, b * cap * D * 4))
+                parts = [
+                    self._scorer(q[lo : lo + qb], self.leaf.emb[leaf_c[lo : lo + qb]].reshape(-1, b * cap, D))
+                    for lo in range(0, B, qb)
+                ]
+                tracing.count("ecpfs.packed.rows_scored", B * b * cap)
+                return torch.cat(parts).view(B, b, cap)
+            qp, q_sq = _prep_queries(q, self.metric)
+            u, inv = torch.unique(leaf_c, return_inverse=True)          # distinct visited leaves
+            tracing.count("ecpfs.packed.host_syncs")                    # u's size
+            tracing.count("ecpfs.packed.rows_scored", B * u.numel() * cap)
+            ub = max(1, self.scan_budget_bytes // (cap * (D + B) * 4))
+            rows_b = torch.arange(B, device=q.device)[:, None]
+            out = None
+            for lo in range(0, u.numel(), ub):
+                blk = u[lo : lo + ub]
+                sq = None if self.leaf.sq is None else self.leaf.sq[blk].reshape(-1)
+                d = _distances(qp, q_sq, self.leaf.emb[blk].reshape(-1, D), sq, self.metric)
+                d = d.view(B, -1, cap)
+                if lo == 0 and blk.numel() == u.numel():
+                    return d[rows_b, inv]
+                rel = torch.clamp(inv - lo, 0, blk.numel() - 1)
+                part = d[rows_b, rel]
+                inside = ((inv >= lo) & (inv < lo + blk.numel()))[..., None]
+                out = part if out is None else torch.where(inside, part, out)
+            return out
 
     @torch.no_grad()
     def _scan_chunk(self, q: torch.Tensor, state: BatchedQueryState, b: int) -> BatchedQueryState:
@@ -243,14 +259,17 @@ class BatchedSearcher:
         lvalid = valid & (leaf >= 0)
         leaf_c = torch.clamp(leaf, min=0)
         d = self._leaf_dists(q, leaf_c)                                           # [B, b, cap]
-        mask = (self.leaf_mask[leaf_c] & lvalid[..., None]).reshape(B, -1)
-        d = torch.where(mask, d.reshape(B, -1), torch.inf)
-        i = torch.where(mask, self.leaf_ids[leaf_c].reshape(B, -1), -1)
-        # merge with buffer, re-sort, keep best C
-        C = state.buf_d.shape[1]
-        buf_d, buf_i = self._topk(
-            torch.cat([state.buf_d, d], dim=-1), torch.cat([state.buf_i, i], dim=-1), C
-        )
+        with tracing.span("ecpfs.packed.merge", device=self.device):
+            mask = (self.leaf_mask[leaf_c] & lvalid[..., None]).reshape(B, -1)
+            if tracing.enabled():
+                tracing.count("ecpfs.packed.rows_needed", mask.sum())
+            d = torch.where(mask, d.reshape(B, -1), torch.inf)
+            i = torch.where(mask, self.leaf_ids[leaf_c].reshape(B, -1), -1)
+            # merge with buffer, re-sort, keep best C
+            C = state.buf_d.shape[1]
+            buf_d, buf_i = self._topk(
+                torch.cat([state.buf_d, d], dim=-1), torch.cat([state.buf_i, i], dim=-1), C
+            )
         return BatchedQueryState(
             leaf_rank=state.leaf_rank,
             leaf_rank_d=state.leaf_rank_d,
@@ -261,18 +280,19 @@ class BatchedSearcher:
 
     @staticmethod
     def _emit(state: BatchedQueryState, k: int):
-        out_d = state.buf_d[:, :k]
-        out_i = state.buf_i[:, :k]
-        B, C = state.buf_d.shape
-        dev = state.buf_d.device
-        rem_d = torch.cat([state.buf_d[:, k:], torch.full((B, k), torch.inf, device=dev)], dim=-1)
-        rem_i = torch.cat(
-            [state.buf_i[:, k:], torch.full((B, k), -1, dtype=torch.int64, device=dev)], dim=-1
-        )
-        new = BatchedQueryState(
-            state.leaf_rank, state.leaf_rank_d, state.next_ptr, rem_d[:, :C], rem_i[:, :C]
-        )
-        return out_d, out_i, new
+        with tracing.span("ecpfs.packed.emit"):
+            out_d = state.buf_d[:, :k]
+            out_i = state.buf_i[:, :k]
+            B, C = state.buf_d.shape
+            dev = state.buf_d.device
+            rem_d = torch.cat([state.buf_d[:, k:], torch.full((B, k), torch.inf, device=dev)], dim=-1)
+            rem_i = torch.cat(
+                [state.buf_i[:, k:], torch.full((B, k), -1, dtype=torch.int64, device=dev)], dim=-1
+            )
+            new = BatchedQueryState(
+                state.leaf_rank, state.leaf_rank_d, state.next_ptr, rem_d[:, :C], rem_i[:, :C]
+            )
+            return out_d, out_i, new
 
     # ---------------------------------------------------------------- API
     def search(
@@ -287,7 +307,10 @@ class BatchedSearcher:
         """New batched search over [D] or [B, D] queries -> ``ResultSet``."""
         b = 8 if b is None else int(b)
         q = q if torch.is_tensor(q) else torch.from_numpy(np.asarray(q, np.float32))
-        q = q.to(self.device, torch.float32)
+        with tracing.span("ecpfs.packed.upload"):
+            if q.device.type == "cpu":
+                tracing.count("ecpfs.packed.host_syncs")  # a copy from host memory
+            q = q.to(self.device, torch.float32)
         single = q.ndim == 1
         if single:
             q = q[None, :]
@@ -307,23 +330,30 @@ class BatchedSearcher:
         return self._result(d, i, state, single, BatchedQuery(self, q, state, b=b, single=single))
 
     def _advance(self, q: torch.Tensor, state: BatchedQueryState, k: int, b: int):
-        """Emit the next k items, scanning further leaves if needed (one
-        host synchronisation per chunk: the loop's test)."""
-        R = state.leaf_rank.shape[1]
-        # scan until every query has k buffered candidates or leaves exhaust
-        for _ in range(64):  # hard bound, as in the reference
-            have = torch.isfinite(state.buf_d[:, :k]).sum(dim=-1)
-            exhausted = state.next_ptr >= R
-            if bool(torch.all((have >= k) | exhausted)):
-                break
-            state = self._scan_chunk(q, state, min(b, R))
-        return self._emit(state, k)
+        """Emit the next k items, scanning further leaves if needed (the
+        host waits once per loop pass, at the test, and once per further
+        chunk, at its ``torch.unique``)."""
+        with tracing.span("ecpfs.packed.advance"):
+            R = state.leaf_rank.shape[1]
+            # scan until every query has k buffered candidates or leaves exhaust
+            for _ in range(64):  # hard bound, as in the reference
+                have = torch.isfinite(state.buf_d[:, :k]).sum(dim=-1)
+                exhausted = state.next_ptr >= R
+                with tracing.span("ecpfs.packed.advance.wait"):
+                    tracing.count("ecpfs.packed.host_syncs")
+                    done = bool(torch.all((have >= k) | exhausted))
+                if done:
+                    break
+                state = self._scan_chunk(q, state, min(b, R))
+            return self._emit(state, k)
 
     def _result(self, d, i, state: BatchedQueryState, single: bool, query) -> ResultSet:
-        d = d.cpu().numpy().astype(np.float32)
-        i = i.cpu().numpy().astype(np.int64)
-        # leaves actually scanned per query (ranked positions visited)
-        ptr = state.next_ptr.cpu().numpy()
+        with tracing.span("ecpfs.packed.result"):
+            tracing.count("ecpfs.packed.host_syncs", 3)  # the three copies back
+            d = d.cpu().numpy().astype(np.float32)
+            i = i.cpu().numpy().astype(np.int64)
+            # leaves actually scanned per query (ranked positions visited)
+            ptr = state.next_ptr.cpu().numpy()
         stats = [SearchStats(leaves_opened=int(p)) for p in ptr]
         if single:
             return ResultSet(dists=d[0], ids=i[0], stats=stats[0], query=query)

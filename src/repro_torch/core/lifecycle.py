@@ -64,6 +64,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from . import layout
 from .distances import np_distances, torch_distances
@@ -450,70 +451,73 @@ def _build_one_shot(data, path, cfg, *, item_ids=None, device="cuda", generation
     cap = _resolve_cap(cfg, dim, store_dt.itemsize)
     n_leaders, fanout, nodes_per_level = layout.derive_shape(n_items, cap, cfg.levels)
 
-    leader_idx = _sample_positions(cfg.seed, n_items, n_leaders)
-    leaders = np.asarray(data[leader_idx], np.float32)         # [l, D]
-    children = _hierarchy(leaders, nodes_per_level, cfg.metric, dev)
+    with tracing.phase("ecpfs.build.hierarchy"):
+        leader_idx = _sample_positions(cfg.seed, n_items, n_leaders)
+        leaders = np.asarray(data[leader_idx], np.float32)         # [l, D]
+        children = _hierarchy(leaders, nodes_per_level, cfg.metric, dev)
 
     # --- item insertion: batched beam-1 traversal -------------------------
-    internal_packed = [
-        pack_children([leaders[ids] for ids in lists], lists, dim)
-        for lists in children
-    ]
-    insert = _make_insert_fn(leaders[: nodes_per_level[0]], internal_packed, cfg.metric, dev)
-    # (row, leaf) assignment pairs, built PER insert batch: each batch
-    # contributes its primary assignments in row order, then its spill
-    # replicas, so the final stable sort by leaf groups rows exactly as
-    # the reference's builds do.
-    pair_rows_l: list[np.ndarray] = []
-    pair_leaf_l: list[np.ndarray] = []
-    for lo in range(0, n_items, cfg.insert_batch):
-        hi = min(lo + cfg.insert_batch, n_items)
-        q = torch.as_tensor(np.asarray(data[lo:hi], np.float32)).to(dev)
-        leaf_b = insert(q).cpu().numpy().astype(np.int64)
-        pair_rows_l.append(np.arange(lo, hi, dtype=np.int64))
-        pair_leaf_l.append(leaf_b)
-        if cfg.spill_s > 0:
-            sr, slv = _spill_targets(
-                np.asarray(data[lo:hi], np.float32), leaders, leaf_b,
-                cfg.spill_s, cfg.spill_eps, cfg.metric,
-            )
-            pair_rows_l.append(sr + lo)
-            pair_leaf_l.append(slv)
-    pair_rows = np.concatenate(pair_rows_l)
-    pair_leaf = np.concatenate(pair_leaf_l)
+    with tracing.phase("ecpfs.build.assign"):
+        internal_packed = [
+            pack_children([leaders[ids] for ids in lists], lists, dim)
+            for lists in children
+        ]
+        insert = _make_insert_fn(leaders[: nodes_per_level[0]], internal_packed, cfg.metric, dev)
+        # (row, leaf) assignment pairs, built PER insert batch: each batch
+        # contributes its primary assignments in row order, then its spill
+        # replicas, so the final stable sort by leaf groups rows exactly as
+        # the reference's builds do.
+        pair_rows_l: list[np.ndarray] = []
+        pair_leaf_l: list[np.ndarray] = []
+        for lo in range(0, n_items, cfg.insert_batch):
+            hi = min(lo + cfg.insert_batch, n_items)
+            q = torch.as_tensor(np.asarray(data[lo:hi], np.float32)).to(dev)
+            leaf_b = insert(q).cpu().numpy().astype(np.int64)
+            pair_rows_l.append(np.arange(lo, hi, dtype=np.int64))
+            pair_leaf_l.append(leaf_b)
+            if cfg.spill_s > 0:
+                sr, slv = _spill_targets(
+                    np.asarray(data[lo:hi], np.float32), leaders, leaf_b,
+                    cfg.spill_s, cfg.spill_eps, cfg.metric,
+                )
+                pair_rows_l.append(sr + lo)
+                pair_leaf_l.append(slv)
+        pair_rows = np.concatenate(pair_rows_l)
+        pair_leaf = np.concatenate(pair_leaf_l)
 
     # --- write the file structure -----------------------------------------
-    store = open_store(path, backend="fstore", create=True)
-    info = layout.IndexInfo(
-        levels=cfg.levels,
-        metric=cfg.metric,
-        dim=dim,
-        dtype=str(store_dt),
-        n_items=n_items,
-        cluster_cap=cap,
-        n_leaders=n_leaders,
-        fanout=fanout,
-        nodes_per_level=nodes_per_level,
-        seed=cfg.seed,
-        generation=generation,
-        insert_batch=cfg.insert_batch,
-        next_id=max(int(item_ids.max()) + 1, next_id or 0),
-        spill_s=max(0, int(cfg.spill_s)),
-        spill_eps=float(cfg.spill_eps),
-    )
-    _write_skeleton(store, info, leaders, item_ids[leader_idx], children, store_dt)
-    order = np.argsort(pair_leaf, kind="stable")
-    sorted_leaf = pair_leaf[order]
-    bounds = np.searchsorted(sorted_leaf, np.arange(n_leaders + 1))
-    for j in range(n_leaders):
-        members = pair_rows[order[bounds[j] : bounds[j + 1]]]
-        store.write_node(
-            cfg.levels,
-            j,
-            np.asarray(data[members], store_dt),
-            item_ids[members].astype(np.int64),
-            chunk_rows=cfg.leaf_chunk_rows,
+    with tracing.phase("ecpfs.build.write"):
+        store = open_store(path, backend="fstore", create=True)
+        info = layout.IndexInfo(
+            levels=cfg.levels,
+            metric=cfg.metric,
+            dim=dim,
+            dtype=str(store_dt),
+            n_items=n_items,
+            cluster_cap=cap,
+            n_leaders=n_leaders,
+            fanout=fanout,
+            nodes_per_level=nodes_per_level,
+            seed=cfg.seed,
+            generation=generation,
+            insert_batch=cfg.insert_batch,
+            next_id=max(int(item_ids.max()) + 1, next_id or 0),
+            spill_s=max(0, int(cfg.spill_s)),
+            spill_eps=float(cfg.spill_eps),
         )
+        _write_skeleton(store, info, leaders, item_ids[leader_idx], children, store_dt)
+        order = np.argsort(pair_leaf, kind="stable")
+        sorted_leaf = pair_leaf[order]
+        bounds = np.searchsorted(sorted_leaf, np.arange(n_leaders + 1))
+        for j in range(n_leaders):
+            members = pair_rows[order[bounds[j] : bounds[j + 1]]]
+            store.write_node(
+                cfg.levels,
+                j,
+                np.asarray(data[members], store_dt),
+                item_ids[members].astype(np.int64),
+                chunk_rows=cfg.leaf_chunk_rows,
+            )
     return store
 
 

@@ -39,6 +39,7 @@ The demo's ``--backend`` picks the interactive server's node storage:
 from __future__ import annotations
 
 import argparse
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -46,6 +47,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import (
     ECPBuildConfig,
     MutableIndex,
@@ -156,6 +158,7 @@ class ServeStats:
 class _Session:
     query: object               # the Query continuation handle
     lease: object = None        # ECPSnapshot lease backing it (or None)
+    request: int | None = None  # the id of the search that opened it
     last_used: float = 0.0
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -203,6 +206,7 @@ class Server:
         self._lock = threading.Lock()
         self._sessions: OrderedDict[int, _Session] = OrderedDict()
         self._next_sid = 0
+        self._requests = itertools.count()  # ids of searches, for their spans
         self.scheduler: RequestScheduler | None = None
         if workers > 0:
             self.scheduler = RequestScheduler(
@@ -214,7 +218,7 @@ class Server:
             )
 
     # ------------------------------------------------------------- sessions
-    def _register(self, query, lease=None) -> int:
+    def _register(self, query, lease=None, request=None) -> int:
         evicted: list[_Session] = []
         with self._lock:
             now = self._clock()
@@ -224,7 +228,7 @@ class Server:
                 evicted.append(old)
             sid = self._next_sid
             self._next_sid += 1
-            self._sessions[sid] = _Session(query=query, lease=lease, last_used=now)
+            self._sessions[sid] = _Session(query=query, lease=lease, last_used=now, request=request)
         for s in evicted:
             self.stats.count("evicted_sessions")
             s.dispose()
@@ -256,16 +260,18 @@ class Server:
         """Serve one search; extra ``opts`` (e.g. the recall knob
         ``probe_m``) flow through to the underlying searcher."""
         t0 = time.perf_counter()
-        if self.scheduler is not None:
-            res = self.scheduler.search(q, k, b=b, deadline_ms=deadline_ms, **opts)
-            rs, lease = res.rs, res.lease
-        else:
-            rs = self.searcher.search(np.asarray(q, np.float32), k, b=b, **opts)
-            lease = None
-        sid = self._register(rs.query, lease)
-        n = 1 if rs.ids.ndim == 1 else rs.ids.shape[0]
-        self.stats.count("queries", n)
-        self.stats.record("search", (time.perf_counter() - t0) * 1e3)
+        request = next(self._requests)
+        with tracing.span("ecpfs.serve.search", args={"request": request}):
+            if self.scheduler is not None:
+                res = self.scheduler.search(q, k, b=b, deadline_ms=deadline_ms, **opts)
+                rs, lease = res.rs, res.lease
+            else:
+                rs = self.searcher.search(np.asarray(q, np.float32), k, b=b, **opts)
+                lease = None
+            sid = self._register(rs.query, lease, request)
+            n = 1 if rs.ids.ndim == 1 else rs.ids.shape[0]
+            self.stats.count("queries", n)
+            self.stats.record("search", (time.perf_counter() - t0) * 1e3)
         return rs, sid
 
     def submit(self, q, k: int = 100, *, b=None, deadline_ms=None, **opts):
@@ -296,17 +302,18 @@ class Server:
     def more(self, sid: int, k: int = 100) -> ResultSet:
         t0 = time.perf_counter()
         sess = self._session(sid)
-        guard = (
-            self.scheduler.read_lock()
-            if self.scheduler is not None and sess.lease is None
-            else _NULL_CTX
-        )
-        with sess.lock, guard:
-            rs = sess.query.next(k)
-        self.stats.count(
-            "continuations", 1 if rs.ids.ndim == 1 else rs.ids.shape[0]
-        )
-        self.stats.record("more", (time.perf_counter() - t0) * 1e3)
+        with tracing.span("ecpfs.serve.more", args={"request": sess.request}):
+            guard = (
+                self.scheduler.read_lock()
+                if self.scheduler is not None and sess.lease is None
+                else _NULL_CTX
+            )
+            with sess.lock, guard:
+                rs = sess.query.next(k)
+            self.stats.count(
+                "continuations", 1 if rs.ids.ndim == 1 else rs.ids.shape[0]
+            )
+            self.stats.record("more", (time.perf_counter() - t0) * 1e3)
         return rs
 
     def close(self, sid: int) -> None:
