@@ -7,9 +7,10 @@ Phases, none of whose failures is caught:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when ``torch.cuda.is_available()`` is false.
-2. kernels: builds the four CUDA sources in ``src/repro_torch/csrc`` (nvcc,
+2. kernels: builds the five CUDA sources in ``src/repro_torch/csrc`` (nvcc,
    sm_90a; prints the registers, shared memory and spills of the wgmma
-   flash kernel and of the two distance kernels' main-path instantiations)
+   flash kernel and of the three distance kernels' main-path
+   instantiations)
    and holds the distance kernels against their plain PyTorch versions on
    the card at the main path's shapes, then at the edges of their designs:
    grouped n_rows of 0, 1, T-1, T, T+1 and 5360 (T the row tile) at k of 1,
@@ -29,7 +30,13 @@ Phases, none of whose failures is caught:
    ``torch.profiler`` (``device_ms``), the same two for a library
    yardstick (timed here only, never called by the port), beside the
    bound; the grouped kernel also at the main path's skew (one leaf of
-   5360 rows among 455-row ones, padded to 5360).
+   5360 rows among 455-row ones, padded to 5360).  Packed mode's leaf
+   scoring (``leaf_distances``) at the benchmark's scan chunk (B=128
+   queries, b=64 leaves each, 1099 leaves padded to 5248 rows of 1152, a
+   median of 250 real rows and 500k in all): within 1e-5 of its plain version under l2,
+   ip and cosine, a second launch bit-identical; timed, cosine and l2,
+   against the plain version, ``torch.mm`` of the same real rows, and the
+   kernel's own bytes bound.
 2a. recsys: the four architectures of ``configs/recsys_archs.py`` at full
    width, random parameters from a seeded generator on the card:
    ``serve_p99`` (a ``ctr_batch`` of 512; sigmoid(forward) on the card
@@ -91,7 +98,8 @@ Phases, none of whose failures is caught:
    card and update on the host timed apart), searched at nprobe=64 with
    ``next(100)``; packed mode's batch; one line of recall@100 and batch
    time for eCP-FS file mode (quantized) and packed mode, the federation
-   and IVF, against BruteForce.  No hand-written kernel launches.
+   and IVF, against BruteForce.  BruteForce and IVF launch no
+   hand-written kernel; packed mode's batch launches ``leaf_distances``.
    ``HNSWLite`` and ``VamanaLite`` do no device work and take minutes to
    build at these widths: the CPU tests hold them.
 3d. serve: the serving path (``launch/serve.py``'s ``Server``) on the same
@@ -115,8 +123,10 @@ Phases, none of whose failures is caught:
    queries), ``next(100)`` against ranks 100-199 of a k=200 search, and,
    with every leaf scanned, against the file-mode fp engine (8 queries; at
    b=64 the two traversals open different leaves); asserts the scan's
-   peak device memory beyond the resident index.  A packed searcher on an
-   index of repeated rows keeps ties in index order; a copy whose top-k
+   peak device memory beyond the resident index; ``leaf_distances``
+   launches counted from 0.  A packed searcher on an
+   index of repeated rows keeps ties in index order (and launches
+   ``leaf_distances``); a copy whose top-k
    puts ties against index order (planted) must fail that check, and a
    copy on ``torch.topk`` (no promised tie order) is reported.
 4. l2: the same steps at a smaller collection with metric l2.
@@ -864,7 +874,8 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
         log(f"[kernels] flash_fwd_wgmma_kernel, ptxas: {json.dumps(res['wgmma_ptxas'])}")
     # the instantiations on the main path: int8 codes through the ring, float32 rows with 16-byte loads
     for name, kern in (("grouped_distance_topk", "grouped_tile_kernelIaLb1E"),
-                       ("distance_topk", "full_select_kernelIfLb1E")):
+                       ("distance_topk", "full_select_kernelIfLb1E"),
+                       ("leaf_distances", "leaf_distances_kernelILi4EE")):
         if name in _build.build_logs:
             res[f"{name}_ptxas"] = ptxas_report(_build.build_logs[name], kern)
             log(f"[kernels] {kern}, ptxas: {json.dumps(res[f'{name}_ptxas'])}")
@@ -995,6 +1006,135 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
         log(f"[kernels] distance_topk B=1 N_pad={n_pad} D={D} f32 cosine k={n_pad}: {json.dumps(t)}")
     res["topk"] = res["topk_by_n"][512]
     counters_at_rest()
+    leaf_part(res)
+
+
+# ------------------------------------------------ packed mode's leaf scoring
+LEAF_B, LEAF_b, LEAF_L, LEAF_CAP = 128, 64, 1099, 5248  # packed.batch128's scan chunk (500k items)
+
+
+def leaf_case(metric: str, seed: int):
+    """A scan chunk of packed mode at the benchmark's shape, on the card:
+    LEAF_L leaves padded to LEAF_CAP rows of D float32 (26.6 GB), unit rows
+    near one direction (dots about 0.8, as the benchmark's collection),
+    ragged prefixes, log-normal around a median of 250 rows with a mean
+    near 455 (500k rows in all, as the benchmark's 500k items; leaf 0
+    full, leaf 1 empty), zero padding, filled 64 leaves at a time; each
+    query takes
+    LEAF_b distinct leaves, leaf 0 first, and a few slots are invalid."""
+    import torch
+
+    B, b, L, cap = LEAF_B, LEAF_b, LEAF_L, LEAF_CAP
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    unit = lambda x: x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    mu = unit(torch.randn(D, device="cuda", generator=g))
+    n_rows = (torch.exp(torch.randn(L, device="cuda", generator=g) * 1.1) * 250).clamp(1, cap).to(torch.int32)
+    n_rows[0], n_rows[1] = cap, 0
+    emb = torch.empty(L, cap, D, device="cuda")
+    sq = torch.empty(L, cap, device="cuda") if metric == "l2" else None
+    for lo in range(0, L, 64):
+        x = unit(2 * mu + torch.randn(min(64, L - lo), cap, D, device="cuda", generator=g) / D ** 0.5)
+        x *= (torch.arange(cap, device="cuda")[None, :] < n_rows[lo : lo + 64, None])[..., None]
+        emb[lo : lo + 64] = x
+        if sq is not None:
+            sq[lo : lo + 64] = torch.sum(x * x, dim=-1)
+        del x
+    q = unit(2 * mu + torch.randn(B, D, device="cuda", generator=g) / D ** 0.5)
+    leaf_c = torch.argsort(torch.rand(B, L - 1, device="cuda", generator=g), dim=1)[:, : b - 1] + 1
+    leaf_c = torch.cat([torch.zeros(B, 1, dtype=torch.long, device="cuda"), leaf_c], dim=1).contiguous()
+    lvalid = torch.ones(B, b, dtype=torch.bool, device="cuda")
+    lvalid[1:4, -b // 6 :] = False
+    q_sq = torch.sum(q * q, dim=-1) if metric == "l2" else None
+    return q, q_sq, emb, sq, n_rows, leaf_c, lvalid
+
+
+def leaf_bound_ms(args, metric: str) -> tuple[float, str, dict]:
+    """Least time of the leaf kernel alone on these inputs: each distinct
+    visited leaf's real rows read once (their squared norms too for l2),
+    the queries and the work list read once, each valid slot's real rows
+    written once (no other entry is written); two
+    operations per element of each valid slot's real rows."""
+    import torch
+
+    q, _, _, _, n_rows, leaf_c, lvalid = args
+    B, b = leaf_c.shape
+    L = n_rows.shape[0]
+    visited = torch.zeros(L, dtype=torch.bool, device=leaf_c.device)
+    visited[leaf_c[lvalid]] = True
+    rows = int(n_rows[visited].sum())
+    needed = int((n_rows[leaf_c] * lvalid).sum())
+    per_row = D * 4 + (4 if metric == "l2" else 0)
+    nbytes = rows * per_row + needed * 4 + B * (D + 1) * 4 + (B * b + 3 * L + 1) * 4
+    ops = 2 * D * needed
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), {
+        "distinct_leaves": int(visited.sum()), "real_rows_read": rows, "outputs_written": needed,
+        "bytes": nbytes, "ops": ops}
+
+
+def named_device_ms(fn, name: str, iters: int = 20, tries: int = 8) -> float | None:
+    """ms on the card per call of the kernels whose name holds ``name``,
+    from torch.profiler; None if no trace kept one record a call."""
+    for _ in range(tries):
+        ks = [e for e in traced_kernels(fn, iters) if name in e.name]
+        if len(ks) == iters:
+            return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters
+    log(f"torch.profiler did not keep {iters} records of {name} in {tries} traces: not measured")
+    return None
+
+
+def leaf_part(res: dict) -> None:
+    """``leaf_distances`` at the benchmark's scan chunk: the wrapper on the
+    card against its plain version on the same inputs within 1e-5 (l2, ip,
+    cosine), a second launch bit-identical, one launch counted a call;
+    timed under cosine (the benchmark's metric) and l2: the wrapper call
+    (``ms``), the kernel alone and the whole op on the profiler's clock
+    (``device_ms``; ``op_device_ms``, the kernels it kept), the plain version, ``torch.mm`` of
+    the visited leaves' real rows (gathered beforehand) against every
+    query, and the kernel's own bound."""
+    import torch
+    from repro_torch.kernels import leaf_distances as ld
+
+    err, out = 0.0, {}
+    for metric in ("cosine", "l2", "ip"):
+        args = leaf_case(metric, 41)
+        # the entries the kernel writes: each valid slot's real rows
+        real = (torch.arange(LEAF_CAP, device="cuda") < args[4][args[5]][..., None]) & args[6][..., None]
+        ld.reset_launches()
+        got = ld.leaf_distances(*args, metric)[real]
+        again = ld.leaf_distances(*args, metric)[real]
+        want = ld.leaf_distances_ref(*args, metric)[real]
+        torch.cuda.synchronize()
+        assert ld.launches["leaf_distances"] == 2, ld.launches
+        assert torch.equal(got, again), f"leaf_distances {metric}: two launches differ"
+        assert bool(torch.isfinite(got).all()), f"leaf_distances {metric}: a real row's distance is not finite"
+        e = float((got - want).abs().max())
+        assert e <= 1e-5, f"leaf_distances {metric}: max abs err {e} against the plain version"
+        err = max(err, e)
+        del got, again, want, real
+        if metric != "ip":
+            op = lambda: ld.leaf_distances(*args, metric)
+            q, n_rows, leaf_c, lvalid = args[0], args[4], args[5], args[6]
+            visited = torch.unique(leaf_c[lvalid])
+            real = torch.cat([args[2][u, : int(n_rows[u])] for u in visited.tolist()])
+            lib = lambda: torch.mm(q, real.T)
+            t = {"ms": cuda_ms(op, 20), "plain_ms": cuda_ms(lambda: ld.leaf_distances_ref(*args, metric), 3, 1),
+                 "library_ms": cuda_ms(lib, 20),
+                 "device_ms": named_device_ms(op, "leaf_distances_kernel")}
+            # the op's ~31 kernels a call (the work list's sort among them):
+            # the profiler drops a few records of a trace (618 of 620 seen)
+            t["op_device_ms"], t["op_kernels_per_call"] = device_time(op, whole=False)
+            t["library_device_ms"], _ = device_time(lib, whole=False)
+            t["bound_ms"], t["bound_by"], t["counted"] = leaf_bound_ms(args, metric)
+            out[metric] = t
+            log(f"[kernels] leaf_distances B={LEAF_B} b={LEAF_b} L={LEAF_L} cap={LEAF_CAP} D={D} f32 {metric}: "
+                + json.dumps(t))
+            del real
+        del args
+        torch.cuda.empty_cache()
+    log(f"[kernels] leaf_distances at the benchmark's scan chunk: l2/ip/cosine within 1e-5 of the plain version "
+        f"(max abs err {err:.3g}), second launches bit-identical")
+    res["leaf"] = {**out["cosine"], "l2": out["l2"], "max_abs_err": err}
 
 
 # ------------------------------------------------------------ the k < N path
@@ -1445,7 +1585,10 @@ def packed_tie_check(work: Path, seed: int, res: dict) -> None:
     packed = load_packed(str(fs))
     Qt = base[1024:]
     good = BatchedSearcher(packed)
+    reset_all_launches()
     rs = good.search(Qt, 40, b=4)
+    launched = all_launches()
+    assert launched["leaf_distances"] > 0, launched
     groups = rs.dists.reshape(len(Qt), -1, copies)
     exact = float(np.mean(np.all(groups == groups[..., :1], axis=-1)))
     assert exact == 1.0, f"the copies' distances do not tie exactly ({exact:.3f} of groups do)"
@@ -1461,7 +1604,7 @@ def packed_tie_check(work: Path, seed: int, res: dict) -> None:
             found[name] = str(e)
         del other
     assert found["planted"], "the planted tie fault (ties against index order) passed the tie check"
-    res["serve"]["ties"] = {"groups_tied": exact, **found}
+    res["serve"]["ties"] = {"groups_tied": exact, "launches": launched, **found}
     log(f"[serve] packed tie check on {len(data)} rows ({copies} copies each, dim {D}): ties in index "
         f"order; planted fault (ties against index order) seen: {found['planted']}; a copy on "
         f"torch.topk (no promised tie order) broke it here: {found['torch.topk']}")
@@ -1634,7 +1777,7 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> 
     out["part_s"]["c"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
 
     # ---------------- (d) batched: open_index(fs) with no mode is packed mode on the card
-    ops.reset_launches()
+    reset_all_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bs = open_index(str(fs))
@@ -1658,7 +1801,8 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> 
     # the scan's own memory: one leaf block (the budget), the chunk's
     # distances, ids and mask, and the merge's inputs, sort and outputs
     limit = bs.scan_budget_bytes + 8 * len(Q) * (C + b * cap) * 8
-    out["batched_launches"] = dict(ops.launches)
+    out["batched_launches"] = all_launches()
+    assert out["batched_launches"]["leaf_distances"] > 0, out["batched_launches"]
     assert peak <= limit, f"the packed scan took {peak} B beyond the resident index (limit {limit})"
     state = rs.query.state
     r200 = bs.search(Q, 2 * k, b=b, b_internal=w)
@@ -2053,22 +2197,22 @@ def phase_baselines(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
     lists (the main index's leaves) and IVF_ITERS k-means iterations, the
     assignment on the card (held against the host's on a sample) and the
     update on the host, timed apart; its search at nprobe = b (the paper's
-    matching) and ``next(k)``; packed mode's batch; then one line of
-    recall@k and batch time for eCP-FS (file mode quantized, packed), the
-    federation and IVF, all against BruteForce.  ``HNSWLite`` and
+    matching) and ``next(k)``, none of which launches a hand-written
+    kernel; packed mode's batch, which launches ``leaf_distances``; then
+    one line of recall@k and batch time for eCP-FS (file mode quantized,
+    packed), the federation and IVF, all against BruteForce.  ``HNSWLite`` and
     ``VamanaLite`` do no device work in either package and their Python
     builds take minutes at these widths: the CPU tests hold them."""
     import torch
     from repro_torch.core import BatchedSearcher, open_index
     from repro_torch.core.baselines import BruteForce, IVFIndex, kmeans
     from repro_torch.core.distances import np_distances, torch_distances
-    from repro_torch.kernels.distance_topk import ops
 
     out = res["baselines"] = {}
     k, b, metric = cfg.k, cfg.b, cfg.metric
     t_phase = time.perf_counter()
     stored = data.astype(np.float16).astype(np.float32)
-    ops.reset_launches()
+    reset_all_launches()
     # ---- brute force: the device block, then the host argsort
     bf = BruteForce(stored, metric)
     bf.search(Q[:2], k)  # the collection goes to the card once
@@ -2106,7 +2250,7 @@ def phase_baselines(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
     out["ivf_next_s"] = time.perf_counter() - t0
     assert irs.ids.shape == (len(Q), k) and np.isfinite(irs.dists).all() and inx.ids.shape == (len(Q), k)
     assert not (set(irs.ids[0]) & set(inx.ids[0]))
-    out["launches"] = dict(ops.launches)
+    out["launches"] = all_launches()
     assert not any(out["launches"].values()), f"the baselines launched a hand-written kernel: {out['launches']}"
     del ivf
     # ---- packed mode's batch, for the comparison
@@ -2114,9 +2258,12 @@ def phase_baselines(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
     pk = open_index(str(built["fs"]))
     assert isinstance(pk, BatchedSearcher), type(pk)
     out["packed_load_s"] = time.perf_counter() - t0
+    reset_all_launches()
     t0 = time.perf_counter()
     prs = pk.search(Q, k, b=b, b_internal=pk.info.nodes_per_level[0])
     out["packed_s"] = time.perf_counter() - t0
+    out["packed_launches"] = all_launches()
+    assert out["packed_launches"]["leaf_distances"] > 0, out["packed_launches"]
     del pk
     torch.cuda.empty_cache()
     n = FED_QUERIES
@@ -2138,7 +2285,7 @@ def phase_baselines(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
         f"({sizes.min()}-{sizes.max()} rows), {IVF_ITERS} iterations: {out['ivf_build_s']:.3f} s (assignment on "
         f"the card {timings['assign_s']:.3f} s, update on the host {timings['update_s']:.3f} s); search "
         f"{out['ivf_search_s']:.3f} s, next({k}) {out['ivf_next_s']:.3f} s; packed load {out['packed_load_s']:.3f} "
-        f"s; launches {out['launches']}; phase {out['phase_s']:.3f} s")
+        f"s; launches {out['launches']}, packed mode's {out['packed_launches']}; phase {out['phase_s']:.3f} s")
     log(f"[baselines] the paper's comparison at {len(data)} items, recall@{k} against BruteForce and batch "
         f"seconds: {json.dumps(out['compare'])}")
 
@@ -2559,18 +2706,21 @@ def mem_line() -> str:
 
 
 def reset_all_launches() -> None:
+    from repro_torch.kernels import leaf_distances as lops
     from repro_torch.kernels.distance_topk import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
     fops.reset_launches()
     dops.reset_launches()
+    lops.reset_launches()
 
 
 def all_launches() -> dict:
+    from repro_torch.kernels import leaf_distances as lops
     from repro_torch.kernels.distance_topk import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
-    return {**fops.launches, **dops.launches}
+    return {**fops.launches, **dops.launches, **lops.launches}
 
 
 def within(what: str, o, e, rtol: float = RETR_TOL) -> float:
@@ -4150,6 +4300,7 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
     log(f"[mesh] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
+    lf = res["leaf"]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
     pr = res["main"]["per_round_ms"]
     # the launches of each kernel on the LM paths of this slice, counted from 0 around each
@@ -4222,6 +4373,24 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
          **lm_paths("flash_attention_wgmma"),
          "other_flash_launches": {"lm": res["lm"]["flash"]["other_flash_launches"],
                                   **lm_paths("flash_attention")}},
+        {"name": "leaf_distances", "route": "cuda",
+         "source": "src/repro_torch/csrc/leaf_distances.cu",
+         "replaces": None, "replaces_why": "new: the JAX package's packed search runs XLA's products",
+         "launches": res["serve"]["batched_launches"]["leaf_distances"],
+         "max_abs_err": lf["max_abs_err"], "ms": lf["ms"], "plain_ms": lf["plain_ms"],
+         "bound_ms": lf["bound_ms"], "bound_by": lf["bound_by"], "library_ms": lf["library_ms"],
+         "device_ms": lf["device_ms"], "op_device_ms": lf["op_device_ms"],
+         "op_kernels_per_call": lf["op_kernels_per_call"], "library_device_ms": lf["library_device_ms"],
+         "counted": lf["counted"],
+         "shape": f"B={LEAF_B} b={LEAF_b} L={LEAF_L} cap={LEAF_CAP} D={D} f32 cosine, real rows median 250, mean ~455",
+         "l2": {a: lf["l2"][a] for a in ("ms", "device_ms", "op_device_ms", "plain_ms", "library_ms",
+                                         "library_device_ms", "bound_ms")},
+         "ptxas": res.get("leaf_distances_ptxas"),
+         "serve_launches": {"packed": res["serve"]["batched_launches"]["leaf_distances"],
+                            "ties": res["serve"]["ties"]["launches"]["leaf_distances"]},
+         "baselines_launches": {"packed": res["baselines"]["packed_launches"]["leaf_distances"],
+                                "bruteforce_ivf": res["baselines"]["launches"]["leaf_distances"]},
+         **lm_paths("leaf_distances")},
     ]
     return kernels
 

@@ -20,22 +20,26 @@ keeps equal distances in index order, as ``jax.lax.top_k`` and the stable
 
 Scoring never gathers a ``[B, b, cap, D]`` block (at the paper's widths one
 such gather is hundreds of GB): each internal level is scored as one
-product of the queries against all its children's centroids, and a leaf
-chunk scores each distinct visited leaf once against every query, in
-blocks of leaves sized to ``scan_budget_bytes``, then picks each query's
-rows out of the products.  For cosine the rows are unit-normalised once
-at load (the arithmetic the reference repeats on every scan); for l2 the
-rows' squared norms are computed once.  The distances are the reference's
-``jnp_distances`` einsums as float32 products; no custom kernel runs here,
-in either package.
+product of the queries against all its children's centroids.  A leaf
+chunk is scored by ``kernels.leaf_distances``: on the card one launch of
+the hand-written ``csrc/leaf_distances.cu``, which reads each visited
+leaf's real rows in place and scores them against only the queries whose
+beams chose it; on the CPU its plain version, which scores each distinct
+visited leaf, padded to the largest, once against every query in blocks
+of leaves sized to ``scan_budget_bytes`` and picks each query's rows out
+of the products.  For cosine the rows are unit-normalised once at load
+(the arithmetic the reference repeats on every scan); for l2 the rows'
+squared norms are computed once.  The distances are the reference's
+``jnp_distances`` in float32 (the reference runs XLA's products).
 
-The host waits for the device (on a GPU) at four sites, each counted as
-``ecpfs.packed.host_syncs`` while tracing is on (``repro_torch.tracing``):
-the upload of queries that arrive in host memory; ``torch.unique``'s
-data-dependent size, once per scan chunk; ``_advance``'s test, once per
-loop pass; and ``_result``'s three copies back.  A search passes the
-upload, one ``torch.unique`` per chunk, one test per pass and the three
-copies; a ``next`` the same without the upload.  The stages' spans are
+The host waits for the device (on a GPU) at three sites, and the plain
+scoring adds a fourth; each is counted as ``ecpfs.packed.host_syncs``
+while tracing is on (``repro_torch.tracing``): the upload of queries that
+arrive in host memory; ``_advance``'s test, once per loop pass;
+``_result``'s three copies back; and, on the CPU, the plain scoring's
+``torch.unique``, once per scan chunk.  A search passes the upload, one
+test per pass and the three copies; a ``next`` the same without the
+upload.  The stages' spans are
 ``ecpfs.packed.upload``, ``.rank``, ``.score``, ``.merge``, ``.advance``
 (its test ``.advance.wait``), ``.emit`` and ``.result``.
 """
@@ -48,8 +52,9 @@ import torch
 
 from .. import tracing
 from ..device import resolve_device
+from ..kernels.leaf_distances import leaf_distances, scored_rows
 from .api import Query, ResultSet, SearchStats
-from .distances import _check
+from .distances import _check, prepared_distances
 from .packed import PackedIndex
 
 __all__ = ["BatchedQuery", "BatchedQueryState", "BatchedSearcher"]
@@ -95,15 +100,13 @@ def _prep_queries(q: torch.Tensor, metric: str):
     return q, None
 
 
-def _distances(qp, q_sq, emb: torch.Tensor, sq, metric: str) -> torch.Tensor:
-    """[B, D] prepared queries x [N, D] rows -> [B, N] distances: the
-    reference's ``jnp_distances`` with the row-side terms precomputed."""
-    dot = qp @ emb.T
-    if metric == "ip":
-        return -dot
-    if metric == "l2":
-        return q_sq[:, None] + sq[None, :] - 2.0 * dot
-    return 1.0 - dot
+def _prefix_rows(mask: torch.Tensor) -> torch.Tensor:
+    """[n_leaves, cap] masks -> [n_leaves] int32 real rows.  Each mask must
+    be a prefix of its leaf's rows, as ``pack_children`` fills them."""
+    n = mask.sum(dim=1)
+    if not torch.equal(mask, torch.arange(mask.shape[1], device=mask.device) < n[:, None]):
+        raise ValueError("a leaf's mask is not a prefix of its rows")
+    return n.to(torch.int32)
 
 
 class BatchedQuery(Query):
@@ -137,8 +140,9 @@ class BatchedSearcher:
     """Device-resident packed index + the search stages (the ``Searcher``
     for packed mode).  ``device`` is "cuda" by default; "cpu" when asked."""
 
-    # bytes one leaf block of a scan chunk may take on the device: the
-    # block's gathered rows plus its [B, rows] distances
+    # bytes one block of gathered leaf rows may take: the plain scoring's
+    # (CPU) blocks of leaves with their [B, rows] distances, the scorer
+    # hook's blocks of queries
     scan_budget_bytes = 2 << 30
 
     def __init__(self, packed: PackedIndex, *, scorer=None, device="cuda"):
@@ -162,6 +166,7 @@ class BatchedSearcher:
         self.leaf = rows(leaf.emb)                                   # [n_leaves, cap, D]
         self.leaf_ids = torch.as_tensor(leaf.ids).to(dev).long()    # [n_leaves, cap]
         self.leaf_mask = torch.as_tensor(leaf.mask).to(dev)         # [n_leaves, cap]
+        self.n_rows = _prefix_rows(self.leaf_mask)                  # [n_leaves] int32
         # scorer(q[B,D], c[B,N,D]) -> [B,N] distances: the reference's hook
         # for another leaf distance; for cosine it sees unit-normalised rows
         self._scorer = scorer
@@ -173,7 +178,7 @@ class BatchedSearcher:
         n = self.root.nbytes + self.leaf.nbytes
         n += sum(r.nbytes for r in self.int_rows)
         n += sum(t.numel() * t.element_size() for t in (*self.int_ids, *self.int_mask))
-        n += self.leaf_ids.numel() * 8 + self.leaf_mask.numel()
+        n += self.leaf_ids.numel() * 8 + self.leaf_mask.numel() + self.n_rows.numel() * 4
         return n
 
     # ------------------------------------------------------------- stage 1
@@ -183,7 +188,7 @@ class BatchedSearcher:
         with tracing.span("ecpfs.packed.rank", device=self.device):
             B = q.shape[0]
             qp, q_sq = _prep_queries(q, self.metric)
-            d = _distances(qp, q_sq, self.root.emb, self.root.sq, self.metric)  # [B, n1]
+            d = prepared_distances(qp, q_sq, self.root.emb, self.root.sq, self.metric)  # [B, n1]
             n1 = d.shape[-1]
             if not self.int_rows:  # L == 1: root children are the leaves
                 order = torch.sort(d, dim=-1, stable=True).indices
@@ -195,7 +200,7 @@ class BatchedSearcher:
             for li, (r, maxc, ids, mask) in enumerate(
                 zip(self.int_rows, self.int_maxc, self.int_ids, self.int_mask)
             ):
-                full = _distances(qp, q_sq, r.emb, r.sq, self.metric).view(B, -1, maxc)
+                full = prepared_distances(qp, q_sq, r.emb, r.sq, self.metric).view(B, -1, maxc)
                 cd = full[rows_b, node]                                 # [B, b, maxc]
                 cm = mask[node]
                 cd = torch.where(cm, cd, torch.inf)
@@ -211,9 +216,11 @@ class BatchedSearcher:
             raise AssertionError("unreachable")
 
     # ------------------------------------------------------------- stage 2
-    def _leaf_dists(self, q: torch.Tensor, leaf_c: torch.Tensor) -> torch.Tensor:
+    def _leaf_dists(self, q: torch.Tensor, leaf_c: torch.Tensor, lvalid: torch.Tensor) -> torch.Tensor:
         """Distances of each query to every row of its visited leaves:
-        ``[B, D]`` x ``leaf_c [B, b]`` -> ``[B, b, cap]``."""
+        ``[B, D]`` x ``leaf_c [B, b]`` -> ``[B, b, cap]``.  The merge masks
+        the rows past each leaf's real ones and the slots ``lvalid`` leaves
+        out: neither version puts a distance there."""
         with tracing.span("ecpfs.packed.score", device=self.device):
             B, b = leaf_c.shape
             cap, D = self.leaf.emb.shape[1], self.leaf.emb.shape[2]
@@ -228,24 +235,17 @@ class BatchedSearcher:
                 tracing.count("ecpfs.packed.rows_scored", B * b * cap)
                 return torch.cat(parts).view(B, b, cap)
             qp, q_sq = _prep_queries(q, self.metric)
-            u, inv = torch.unique(leaf_c, return_inverse=True)          # distinct visited leaves
-            tracing.count("ecpfs.packed.host_syncs")                    # u's size
-            tracing.count("ecpfs.packed.rows_scored", B * u.numel() * cap)
-            ub = max(1, self.scan_budget_bytes // (cap * (D + B) * 4))
-            rows_b = torch.arange(B, device=q.device)[:, None]
-            out = None
-            for lo in range(0, u.numel(), ub):
-                blk = u[lo : lo + ub]
-                sq = None if self.leaf.sq is None else self.leaf.sq[blk].reshape(-1)
-                d = _distances(qp, q_sq, self.leaf.emb[blk].reshape(-1, D), sq, self.metric)
-                d = d.view(B, -1, cap)
-                if lo == 0 and blk.numel() == u.numel():
-                    return d[rows_b, inv]
-                rel = torch.clamp(inv - lo, 0, blk.numel() - 1)
-                part = d[rows_b, rel]
-                inside = ((inv >= lo) & (inv < lo + blk.numel()))[..., None]
-                out = part if out is None else torch.where(inside, part, out)
-            return out
+            if q.device.type == "cpu":
+                # the plain version: every query against each distinct leaf,
+                # padded; its torch.unique's size reaches the host
+                tracing.count("ecpfs.packed.host_syncs")
+                if tracing.enabled():
+                    tracing.count("ecpfs.packed.rows_scored", B * torch.unique(leaf_c).numel() * cap)
+            elif tracing.enabled():
+                # the kernel: its row tiles times its pairs in whole warps
+                tracing.count("ecpfs.packed.rows_scored", scored_rows(leaf_c, lvalid, self.n_rows))
+            return leaf_distances(qp.contiguous(), q_sq, self.leaf.emb, self.leaf.sq, self.n_rows, leaf_c,
+                                  lvalid, self.metric, self.scan_budget_bytes)
 
     @torch.no_grad()
     def _scan_chunk(self, q: torch.Tensor, state: BatchedQueryState, b: int) -> BatchedQueryState:
@@ -258,7 +258,7 @@ class BatchedSearcher:
         leaf = torch.gather(state.leaf_rank, -1, pos_c)                          # [B, b]
         lvalid = valid & (leaf >= 0)
         leaf_c = torch.clamp(leaf, min=0)
-        d = self._leaf_dists(q, leaf_c)                                           # [B, b, cap]
+        d = self._leaf_dists(q, leaf_c, lvalid)                                   # [B, b, cap]
         with tracing.span("ecpfs.packed.merge", device=self.device):
             mask = (self.leaf_mask[leaf_c] & lvalid[..., None]).reshape(B, -1)
             if tracing.enabled():
@@ -331,8 +331,8 @@ class BatchedSearcher:
 
     def _advance(self, q: torch.Tensor, state: BatchedQueryState, k: int, b: int):
         """Emit the next k items, scanning further leaves if needed (the
-        host waits once per loop pass, at the test, and once per further
-        chunk, at its ``torch.unique``)."""
+        host waits once per loop pass, at the test, and on the CPU once per
+        further chunk, at the plain scoring's ``torch.unique``)."""
         with tracing.span("ecpfs.packed.advance"):
             R = state.leaf_rank.shape[1]
             # scan until every query has k buffered candidates or leaves exhaust

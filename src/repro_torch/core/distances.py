@@ -60,6 +60,19 @@ def np_distances(
 
 
 # ------------------------------------------------------------------ torch
+def prepared_distances(qp: torch.Tensor, q_sq, emb: torch.Tensor, sq, metric: str) -> torch.Tensor:
+    """[B, D] prepared queries x [N, D] rows -> [B, N] distances: the
+    reference's ``jnp_distances`` with the row-side terms precomputed
+    (``q_sq``, ``sq``: squared norms, for l2 alone; cosine's sides come
+    unit-normalised)."""
+    dot = qp @ emb.T
+    if metric == "ip":
+        return -dot
+    if metric == "l2":
+        return q_sq[:, None] + sq[None, :] - 2.0 * dot
+    return 1.0 - dot
+
+
 def torch_distances(q: torch.Tensor, c: torch.Tensor, metric: str) -> torch.Tensor:
     """q: [..., B, D]; c: [..., N, D] -> [..., B, N] distances (f32 accum)."""
     _check(metric)

@@ -4,12 +4,14 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process for
 ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the repository root
 (override with ``REPRO_TORCH_BUILD_DIR``); the hash covers the source, the
 shared header and the flags, so an edited source rebuilds and an unchanged
-one is loaded as it is.  The first use builds every source at once, one
-process each, all started together.  Nothing here runs at import time:
-the CPU tests import every module on a machine without ``nvcc``.
+one is loaded as it is.  The first use of a library builds its source
+alone; ``build_all`` builds every source at once, one process each, all
+started together.  Nothing here runs at import time: the CPU tests import
+every module on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("distance_topk", "grouped_distance_topk", "flash_attention", "flash_attention_wgmma")
+SOURCES = ("distance_topk", "grouped_distance_topk", "flash_attention", "flash_attention_wgmma",
+           "leaf_distances")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,6 +52,9 @@ SIGNATURES = {
         "flash_attention_wgmma_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
         "flash_attention_wgmma_smem_bytes": [],
+    },
+    "leaf_distances": {
+        "leaf_distances_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -84,11 +90,11 @@ def _target(name: str) -> Path:
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(verbose: bool = False) -> dict[str, Path]:
-    """Compile every source whose library is missing or stale, one nvcc
-    process per source, all in parallel.  Returns name -> library path;
-    raises with the compiler's output if any build fails."""
-    targets = {name: _target(name) for name in SOURCES}
+def build(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
+    """Compile each named source whose library is missing or stale, one
+    nvcc process per source, all in parallel.  Returns name -> library
+    path; raises with the compiler's output if any build fails."""
+    targets = {name: _target(name) for name in names}
     todo = {n: t for n, t in targets.items() if not t.is_file()}
     if todo:
         nvcc = nvcc_path()
@@ -115,20 +121,21 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
     return targets
 
 
+def build_all(verbose: bool = False) -> dict[str, Path]:
+    """``build`` of every source."""
+    return build(SOURCES, verbose)
+
+
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of one source (building all sources at first use)."""
+    """The loaded library of one source (building that source at first use)."""
     with _lock:
         if name not in _libs:
-            paths = build_all()
-            for n, p in paths.items():
-                if n in _libs:
-                    continue
-                cdll = ctypes.CDLL(str(p))
-                for fn, argtypes in SIGNATURES[n].items():
-                    f = getattr(cdll, fn)
-                    f.argtypes = argtypes
-                    f.restype = ctypes.c_int
-                _libs[n] = cdll
+            cdll = ctypes.CDLL(str(build((name,))[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(cdll, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = cdll
         return _libs[name]
 
 
@@ -136,3 +143,24 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch function."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+METRIC_CODE = {"l2": 0, "ip": 1, "cosine": 2}  # the kernels' metric argument
+
+
+def metric_code(metric: str) -> int:
+    if metric not in METRIC_CODE:
+        raise ValueError(f"unknown metric {metric!r} (l2|ip|cosine)")
+    return METRIC_CODE[metric]
+
+
+@contextlib.contextmanager
+def on(device):
+    """Launch on ``device``: enter it only when it is not the current one."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        yield
+    else:
+        with torch.cuda.device(device):
+            yield

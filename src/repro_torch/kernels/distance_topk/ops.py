@@ -25,7 +25,6 @@ no path the dry run traces and stays a plain call.
 """
 from __future__ import annotations
 
-import contextlib
 import threading
 
 import numpy as np
@@ -35,7 +34,7 @@ from torch.utils.flop_counter import register_flop_formula
 from .. import _build
 from .ref import distance_topk_ref, grouped_distance_topk_ref
 
-METRIC_CODE = {"l2": 0, "ip": 1, "cosine": 2}
+METRIC_CODE = _build.METRIC_CODE
 QFORMAT_CODE = {"int8": 0, "float16": 1}
 QFORMAT_DTYPE = {"int8": torch.int8, "float16": torch.float16}
 DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -53,12 +52,6 @@ def reset_launches() -> None:
 def _count_launch(name: str) -> None:
     with _launches_lock:
         launches[name] += 1
-
-
-def _metric(metric: str) -> int:
-    if metric not in METRIC_CODE:
-        raise ValueError(f"unknown metric {metric!r} (l2|ip|cosine)")
-    return METRIC_CODE[metric]
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -229,16 +222,6 @@ def _device_optin(lib, fn: str, device: torch.device) -> int:
     return _optin[device.index]
 
 
-@contextlib.contextmanager
-def _on(device: torch.device):
-    """Launch on ``device``: enter it only when it is not the current one."""
-    if device.index == torch.cuda.current_device():
-        yield
-    else:
-        with torch.cuda.device(device):
-            yield
-
-
 def distance_topk(q, c, k: int, metric: str = "l2"):
     """q [B, D], c [N, D] (float32 | bfloat16 | float16 tensors, numpy
     taken as CPU) -> (dists [B, k] float32, idx [B, k] int32) tensors on
@@ -252,7 +235,7 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
     only keys below its k-th through, and the last block of the row runs
     the same filter over their lists, a column at a time."""
     q, c = _as_tensor(q), _as_tensor(c)
-    m = _metric(metric)
+    m = _build.metric_code(metric)
     if q.ndim != 2 or c.ndim != 2 or q.shape[1] != c.shape[1]:
         raise ValueError(f"distance_topk expects q [B, D], c [N, D]; got {tuple(q.shape)}, {tuple(c.shape)}")
     if k < 1:
@@ -281,7 +264,7 @@ def _distance_topk_op(q: torch.Tensor, c: torch.Tensor, k: int, m: int) -> tuple
     out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     keys, counters = workspace(dev, key_bytes, B)
-    with _on(dev):
+    with _build.on(dev):
         err = lib.distance_topk_launch(
             q.data_ptr(), c.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), keys.data_ptr(),
             counters.data_ptr(), B, N, D, k, m, DTYPE_CODE[q.dtype], nblk,
@@ -323,7 +306,7 @@ def grouped_distance_topk_tensors(
     inputs' device (no device-to-host copy, no synchronisation)."""
     q, codes = _as_tensor(q), _as_tensor(codes)
     scales, offsets, n_rows = _as_tensor(scales), _as_tensor(offsets), _as_tensor(n_rows)
-    m = _metric(metric)
+    m = _build.metric_code(metric)
     if qformat not in QFORMAT_CODE:
         raise ValueError(f"unknown quant format {qformat!r} (int8|float16)")
     if k < 1:
@@ -350,7 +333,7 @@ def grouped_distance_topk_tensors(
     out_d = torch.empty((G, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((G, k), dtype=torch.int32, device=dev)
     lists, counters = workspace(dev, G * tiles * P * 8, G)
-    with _on(dev):
+    with _build.on(dev):
         err = lib.grouped_distance_topk_launch(
             q.data_ptr(), codes.data_ptr(), scales.data_ptr(), offsets.data_ptr(),
             n_rows.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), lists.data_ptr(),

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import leaf_distances as ld
 from repro_torch.kernels.distance_topk import ops
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +114,111 @@ def test_candidate_scores_on_the_card_is_one_launch_of_the_split_path(card):
     torch.cuda.synchronize()
     for _, counters in ops.workspaces.values():
         assert int(torch.count_nonzero(counters)) == 0
+
+
+# ------------------------------------------------- packed mode's leaf scoring
+def _unit(x):
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _leaf_case(device, metric, B, b, L, cap, D, seed=0, median=250, offset=False):
+    """Leaves as ``BatchedSearcher`` holds them: unit rows near one common
+    direction (dots about 0.8, as the benchmark's collection), ragged
+    prefixes (leaf 0 full, leaf 1 empty, the rest around ``median`` rows),
+    zero padding.  Each query takes b distinct leaves, leaf 0 first (a leaf
+    every query chose); a few slots invalid.  ``offset`` puts the block 4
+    bytes past an aligned address (the kernel's 4-byte copies)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mu = _unit(torch.randn(D, device=device, generator=g))
+    n_rows = torch.exp(torch.randn(L, device=device, generator=g) * 0.6) * median
+    n_rows = n_rows.clamp(1, cap).to(torch.int32)
+    n_rows[0] = cap
+    n_rows[1:2] = 0
+    store = torch.empty(L * cap * D + int(offset), device=device)
+    emb = store[int(offset):].view(L, cap, D)
+    emb.copy_(_unit(2 * mu + torch.randn(L, cap, D, device=device, generator=g) / D ** 0.5))
+    emb *= (torch.arange(cap, device=device)[None, :] < n_rows[:, None])[..., None]
+    q = _unit(2 * mu + torch.randn(B, D, device=device, generator=g) / D ** 0.5)
+    leaf_c = torch.argsort(torch.rand(B, L - 1, device=device, generator=g), dim=1)[:, : b - 1] + 1
+    leaf_c = torch.cat([torch.zeros(B, 1, dtype=torch.long, device=device), leaf_c], dim=1)
+    lvalid = torch.ones(B, b, dtype=torch.bool, device=device)
+    lvalid[1:4, -max(1, b // 6):] = False
+    q_sq = torch.sum(q * q, dim=-1) if metric == "l2" else None
+    sq = torch.sum(emb * emb, dim=-1) if metric == "l2" else None
+    return q, q_sq, emb, sq, n_rows, leaf_c, lvalid
+
+
+def _real(args):
+    """Each valid slot's real rows: the only entries the kernel writes."""
+    emb, n_rows, leaf_c, lvalid = args[2], args[4], args[5], args[6]
+    return (torch.arange(emb.shape[1], device=emb.device) < n_rows[leaf_c][..., None]) & lvalid[..., None]
+
+
+def _against_plain(args, metric, atol):
+    """The kernel against its plain version on each valid slot's real rows;
+    returns them."""
+    ld.reset_launches()
+    got = ld.leaf_distances(*args, metric)
+    assert ld.launches["leaf_distances"] == 1
+    want = ld.leaf_distances_ref(*args, metric)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    real = _real(args)
+    assert bool(torch.isfinite(got[real]).all())
+    err = float((got[real] - want[real]).abs().max()) if bool(real.any()) else 0.0
+    assert err <= atol, (metric, err)
+    return got[real]
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_leaf_distances_at_the_main_paths_shape_is_the_plain_version(card, metric):
+    """B = 128 queries, b = 64 leaves each, leaves padded to 5248 rows of
+    1152 (median 250): each valid slot's real rows within 1e-5 of the plain
+    version (float32 sums in another order over 1152 terms); a second
+    launch is bit-identical there."""
+    args = _leaf_case(card, metric, B=128, b=64, L=96, cap=5248, D=1152)
+    got = _against_plain(args, metric, 1e-5)
+    assert torch.equal(ld.leaf_distances(*args, metric)[_real(args)], got)
+
+
+@pytest.mark.parametrize(
+    "B,b,L,cap,D,offset",
+    [
+        (5, 3, 7, 40, 18, False),     # D not a multiple of 4: 4-byte copies
+        (5, 3, 7, 40, 20, False),     # a K-slice past D
+        (33, 9, 12, 300, 64, False),  # 33 pairs on leaf 0: two query groups
+        (3, 2, 4, 129, 1152, True),   # a block 4 bytes off alignment; 129 rows: two tiles
+        (1, 1, 1, 8, 8, False),
+    ],
+)
+def test_leaf_distances_edges(card, B, b, L, cap, D, offset):
+    for metric in ("l2", "ip", "cosine"):
+        _against_plain(_leaf_case(card, metric, B, b, L, cap, D, median=cap // 3, offset=offset), metric, 1e-5)
+
+
+def test_packed_search_on_the_card_is_the_cpu_searchers_and_launches_once_a_chunk(card, tmp_path):
+    """A packed search and two ``next`` on the card return the CPU
+    searcher's ids (distances within 1e-5), under each metric; the kernel
+    launches once for each scan chunk (``ecpfs.packed.score`` span)."""
+    from repro_torch import tracing
+    from repro_torch.core import BatchedSearcher, ECPBuildConfig, build_index, load_packed
+
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((3000, 48)).astype(np.float32)
+    Q = rng.standard_normal((20, 48)).astype(np.float32)
+    for metric in ("l2", "ip", "cosine"):
+        path = str(tmp_path / metric)
+        build_index(data, path, ECPBuildConfig(levels=2, metric=metric, cluster_cap=40), device="cpu")
+        packed = load_packed(path)
+        on_card, on_cpu = BatchedSearcher(packed, device="cuda"), BatchedSearcher(packed, device="cpu")
+        ld.reset_launches()
+        tracing.reset()
+        with tracing.on():
+            a = on_card.search(Q, 50, b=1)
+            nexts = [a.query.next(50) for _ in range(2)]
+        chunks = tracing.snapshot()["spans"]["ecpfs.packed.score"]["count"]
+        tracing.reset()
+        assert chunks >= 3 and ld.launches["leaf_distances"] == chunks
+        c = on_cpu.search(Q, 50, b=1)
+        for x, y in [(a, c)] + list(zip(nexts, [c.query.next(50) for _ in range(2)])):
+            assert np.array_equal(x.ids, y.ids), metric
+            np.testing.assert_allclose(x.dists, y.dists, rtol=1e-5, atol=1e-5)

@@ -224,8 +224,8 @@ def card_index(tmp_path_factory):
 @pytest.mark.cuda
 def test_host_syncs_counts_what_torch_warns_of(card_index, queries):
     """Every wait the counter counts is one torch flags in its sync debug
-    mode, and no other: the upload from pageable memory, each chunk's
-    ``torch.unique``, each loop test, each copy back."""
+    mode, and no other: the upload from pageable memory, each loop test,
+    each copy back (the card's leaf scoring waits for nothing)."""
     _serve(card_index, queries)  # warm
     torch.cuda.synchronize()
     tracing.reset()
