@@ -77,6 +77,10 @@ def run_control(cell: Cell, seed: int, dtype, device: str, *, stats: bool = Fals
                             "p99": float(np.percentile(sizes, 99)), "over_cap": int((sizes > int(cfg["cluster_cap"])).sum()),
                             "empty": int((sizes == 0).sum())}
         out["recall_at_k"] = float(np.mean([len(np.intersect1d(a, t)) / k for a, t in zip(first, top)]))
+        # the reference's pages are slices of the leaves a search opens:
+        # they hold every page served only where those leaves hold n_pages * k rows
+        out["opened_rows_min"] = int(min(sum(len(judged.members[j]) for j in leaves) for leaves in judge.opened(queries)))
+        out["served_rows"] = n_pages * k
         g_topic, g_size = collection.layout(cfg["data"], int(cfg["n_items"]))
         topic_of = np.repeat(g_topic, g_size)
         out["topics_with_a_level1_node"] = int(len(np.unique(topic_of[index.leaders[: index.nodes[0]]])))

@@ -1,7 +1,12 @@
-"""Share of the rows packed search scored that a query needed, in percent:
-each query's own valid leaves' real rows (``ecpfs.packed.rows_needed``)
-over the rows scored, every query against every distinct visited leaf
-padded to the largest (``ecpfs.packed.rows_scored``), over the window."""
+"""Share of the (row, query) distances packed search computed that a query
+needed, in percent, over the window: each query's own valid leaves' real
+rows (``ecpfs.packed.rows_needed``) over the distances scored
+(``ecpfs.packed.rows_scored``).  On the card's kernel path the latter is
+each visited leaf's 128-row tiles (zero-filled past its real rows) times
+its valid (query, leaf) pairs rounded up to whole 4-pair warps
+(``leaf_distances.scored_rows``), so the yield reads the tiles' and the
+warps' waste; on the plain path (the CPU) every query against every
+distinct visited leaf padded to the largest."""
 from portbench import program
 
 

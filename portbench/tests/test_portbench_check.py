@@ -15,7 +15,7 @@ from portbench import check, collection, control, harness, reference
 
 ROOT = Path(__file__).resolve().parents[2]
 PORTBENCH = ROOT / "portbench"
-CELLS = ("file.tkis", "packed.batch128")
+CELLS = ("file.tkis", "file.incremental", "packed.batch128")
 
 
 def _run(cell, tmp_path, seed=2**31 + 99, trace=False):
@@ -31,6 +31,26 @@ def test_the_port_matches_the_reference(name, tiny, tmp_path):
     assert list(result)[-1] == "checks"
     assert result["checks"]["page_miss"]["value"] == 0.0
     assert result["checks"]["dist_err"]["value"] < 1e-5
+
+
+def test_incremental_browsing_serves_eleven_pages_a_search(tiny, tmp_path, monkeypatch):
+    pages, orig = [], check.page_numbers
+
+    def page_numbers(reference, queries, served):
+        pages.extend(len(row) for row in served)
+        return orig(reference, queries, served)
+
+    monkeypatch.setattr(check, "page_numbers", page_numbers)
+    built = []
+    monkeypatch.setattr(harness, "_open", lambda cfg, path, device, _o=harness._open: (
+        built.append(path), _o(cfg, path, device))[1])
+    result = _run(tiny("file.incremental"), tmp_path)
+    assert result["correct"], result["checks"]
+    assert pages and set(pages) == {11}
+    assert result["attempted"] % 11 == 0
+    # the index was opened from the run's own directory, and removed with it
+    assert built == [tmp_path / "index"]
+    assert not (tmp_path / "index").exists()
 
 
 def test_a_traced_run_reports_its_layers(tiny, tmp_path):
@@ -122,8 +142,9 @@ FAULTS = {"drop_nearest_leaf": _drop_nearest_leaf, "state_unchanged": _state_unc
           "half_batch": _half_batch, "answer_altered": _answer_altered}
 
 
+# a file cell's request is one query row: it has no half of a batch to leave out
 @pytest.mark.parametrize("name,fault", [(c, f) for c in CELLS for f in FAULTS
-                                        if not (f == "half_batch" and c == "file.tkis")])
+                                        if not (f == "half_batch" and c.startswith("file."))])
 def test_a_broken_timed_path_is_not_correct(name, fault, tiny, tmp_path, monkeypatch):
     FAULTS[fault](monkeypatch, harness.Cell.find(name, held_out=True).config["open"]["mode"])
     result = _run(tiny(name), tmp_path)
@@ -169,6 +190,7 @@ def test_the_control_in_bfloat16_is_not_correct(name, tiny):
     assert not control.run_control(tiny(name), 7, torch.bfloat16, "cpu")["correct"]
     sound = control.run_control(tiny(name), 7, torch.float64, "cpu", stats=True)
     assert sound["correct"] and sound["checks"]["page_miss"]["value"] == 0.0
+    assert sound["opened_rows_min"] >= sound["served_rows"]
     assert 0 < sound["recall_at_k"] <= 1
 
 

@@ -30,6 +30,13 @@ def test_every_cell_and_metric_is_found_by_name():
         assert cell.per_layer, w["name"]
     for m in bench["per_layer"]:
         assert callable(harness.read_metric(m["name"]))
+    assert {"packed.batch128", "file.tkis", "file.incremental"} <= {w["name"] for w in bench["workloads"]}
+    cell = harness.Cell.find("file.incremental", held_out=True)
+    assert cell.traffic["more_per_query"] == 10
+    assert {m["name"] for m in cell.per_layer} == {
+        "cache_hit_share.file", "bytes_read_per_search.file", "distance_topk_roofline",
+        "device_idle_share.file", "build_s.file"}
+    assert {m["name"] for m in cell.end_to_end} == {"pages_per_s", "setup_s"}
 
 
 def test_a_cell_is_added_by_adding_files(tmp_path):

@@ -15,7 +15,7 @@ STAGES = {"rank_device_ms_per_batch.packed": "ecpfs.packed.rank",
           "leaf_score_device_ms_per_batch.packed": "ecpfs.packed.score",
           "merge_device_ms_per_batch.packed": "ecpfs.packed.merge"}
 READERS = (*STAGES, "scanned_row_yield.packed", "host_syncs_per_batch.packed",
-           "search_idle_ms_per_batch.packed", "build_s.packed", "open_s.packed")
+           "search_idle_ms_per_batch.packed", "build_s.packed", "build_s.file", "open_s.packed")
 
 
 def _span(count, device_s=0.0, device_n=0):
@@ -63,6 +63,7 @@ def test_each_reader_on_a_hand_built_run(monkeypatch):
         "host_syncs_per_batch.packed": pytest.approx(10.0),
         "search_idle_ms_per_batch.packed": pytest.approx(1e3 * 4.0 / 4),
         "build_s.packed": pytest.approx(12.0),
+        "build_s.file": pytest.approx(12.0),
         "open_s.packed": pytest.approx(19.0),
     }
 
