@@ -13,12 +13,25 @@ Two parts, each a handful of numbers held to limits (the workload file's
   than the nearest one the descent could have taken).
 * What the timed path served: ``bad_answers`` (an id outside the
   collection or repeated in a row's pages, a distance that is not finite,
-  pages out of order), ``dist_err`` (the widest gap between a served
-  distance and the float64 distance of its id), ``page_miss`` (the share
-  of the reference's page entries missing from the served page).  The
+  a step back in distance beyond those the reference's pages take),
+  ``dist_err`` (the widest gap between a served distance and the float64
+  distance of its id), ``page_miss`` (the share of the reference's page
+  entries missing from the served page).  The
   reference searches its own float64 build of the index; only where the
   stored parent or leaf is a rounding from the nearest (``TIE``) does the
   program's choice stand.
+
+A configuration with ``shards`` is a federation (``federation.json`` and a
+directory of files for each shard): the three set-up numbers are taken
+shard by shard, each against the reference's derivation of its own slice
+(``reference.shard_bounds``) under its own leader draw, and summed (the
+gap: the worst); ``routing_errors`` counts the shards missing from the
+manifest or extra in it, and each entry whose item count is not the
+number of items its shard's leaves hold, or whose router centroids are
+not its shard's root rows to the manifest's 6 decimals.  The reference
+routes as the program does, and where two router centroids of different
+shards lie within ``TIE``, the program's split (recorded with each
+search) stands.
 """
 from __future__ import annotations
 
@@ -30,7 +43,7 @@ import torch
 
 from . import reference as ref
 
-EXACT = ("leader_mismatch", "structure_errors", "bad_answers")
+EXACT = ("leader_mismatch", "structure_errors", "bad_answers", "routing_errors")
 # Two parents or leaves whose float64 distances differ by less than this
 # are a tie to the float32 rounding of a sound build, which read gaps of
 # at most 6.2e-7 (PERF.md §4): there the program's choice stands.
@@ -138,7 +151,7 @@ def build_numbers(data: torch.Tensor, cfg: dict, stored: ref.Index, *, root: Pat
         checks += [(L, int(j), stored.members[j]) for j in rng.choice(n_leaders, min(sample_leaves, n_leaders), replace=False)]
         for level, node, ids in checks:
             emb = read_array(root, f"{node_path(level, node)}/embeddings")
-            if emb.shape != (len(ids), data.shape[1]):
+            if emb.shape != (len(ids), data.shape[1]) or ((ids < 0) | (ids >= n)).any():
                 errors += 1
                 continue
             same = emb.view(np.uint8).reshape(len(ids), -1) == host(ids).view(np.uint8).reshape(len(ids), -1)
@@ -146,14 +159,78 @@ def build_numbers(data: torch.Tensor, cfg: dict, stored: ref.Index, *, root: Pat
     return {**out, "structure_errors": errors, "assign_gap": gap}, judged
 
 
+MANIFEST = "federation.json"
+# the manifest keeps each router value to 6 decimals: half of that, and
+# float64's rounding of the comparison, is still the shard file's value
+ROUTER_ROUND = 5e-7 * (1 + 1e-9)
+
+
+def read_federation(root: Path) -> tuple[list[dict], list[ref.Index]]:
+    """The manifest's shard entries, and each shard's structure as its
+    files hold it (global ids)."""
+    entries = json.loads((root / MANIFEST).read_text())["shards"]
+    return entries, [read_index(root / e["path"]) for e in entries]
+
+
+def index_numbers(data: torch.Tensor, cfg: dict, root: Path | None, seed: int, stored=None,
+                  entries: list | None = None):
+    """The set-up numbers of the configuration's index, and what the
+    reference searches (an ``Index``, or a list of them for a
+    federation).  ``stored`` (and a federation's manifest ``entries``):
+    the structure to judge, where it is not read from the files under
+    ``root``; without ``root`` the files' bytes and the manifest go
+    unchecked."""
+    if "shards" not in cfg:
+        return build_numbers(data, cfg, stored if stored is not None else read_index(root), root=root, seed=seed)
+    if stored is None:
+        entries, stored = read_federation(root)
+    bounds = ref.shard_bounds(data.shape[0], cfg["shards"])
+    out = {"leader_mismatch": 0, "structure_errors": 0, "assign_gap": 0.0}
+    judged = []
+    for s, (lo, hi) in enumerate(bounds):
+        if s >= len(stored):
+            judged.append(ref.offset(ref.build(data[lo:hi], cfg, torch.float64), lo))
+            continue
+        st = stored[s]
+        local = ref.Index(st.leaders - lo, st.nodes, st.children, [m - lo for m in st.members])
+        where = None if root is None else root / entries[s]["path"]
+        nums, j = build_numbers(data[lo:hi], cfg, local, root=where, seed=seed + s)
+        for key in ("leader_mismatch", "structure_errors"):
+            out[key] += nums[key]
+        out["assign_gap"] = max(out["assign_gap"], nums["assign_gap"])
+        judged.append(ref.offset(j, lo))
+    if root is not None:
+        out["routing_errors"] = abs(len(entries) - len(bounds)) + sum(
+            _entry_errors(root / e["path"], e, st) for e, st in zip(entries, stored))
+    return out, judged
+
+
+def _entry_errors(shard: Path, entry: dict, stored: ref.Index) -> int:
+    """1 where a manifest entry's item count or router centroids are not
+    what its shard's files hold, else 0."""
+    if int(entry.get("n_items", -1)) != sum(len(m) for m in stored.members):
+        return 1
+    root_rows = read_array(shard, f"{node_path(0, 0)}/embeddings").astype(np.float64)
+    router = np.asarray(entry.get("router", []), np.float64)
+    return int(router.shape != root_rows.shape or not bool((np.abs(router - root_rows) <= ROUTER_ROUND).all()))
+
+
+def routes_by_shard(entries: list[dict], routes: list) -> list:
+    """The program's splits ({shard name: b}) by shard position in the
+    manifest; None where a search recorded none."""
+    at = {e["name"]: s for s, e in enumerate(entries)}
+    return [None if r is None else {at.get(name, -1): int(b) for name, b in r.items()} for r in routes]
+
+
 # ------------------------------------------------------------ the pages
 @torch.no_grad()
-def page_numbers(reference: ref.Searcher, queries: np.ndarray, served: list[list[tuple]]) -> dict:
+def page_numbers(reference, queries: np.ndarray, served: list[list[tuple]], routes: list | None = None) -> dict:
     """bad_answers, dist_err, page_miss of ``served`` ([rows] lists of
-    (ids, dists) pages, in the order they were served) for ``queries``."""
+    (ids, dists) pages, in the order they were served) for ``queries``;
+    ``routes``: a federation's recorded splits, for the reference's ties."""
     n = reference.data.shape[0]
     n_pages = len(served[0])
-    want = reference.pages(queries, n_pages)
+    want = reference.pages(queries, n_pages, routes)
     qn = ref.unit(torch.as_tensor(queries, device=reference.data.device), torch.float64)
     bad, err, miss, total = 0, 0.0, 0, 0
     for r, (pages, rpages) in enumerate(zip(served, want)):
@@ -161,7 +238,11 @@ def page_numbers(reference: ref.Searcher, queries: np.ndarray, served: list[list
         dists = np.concatenate([np.asarray(p[1], np.float64) for p in pages])
         ok = (ids >= 0) & (ids < n) & np.isfinite(dists)
         bad += int((~ok).sum()) + int(len(ids[ok]) - len(np.unique(ids[ok])))
-        bad += int((np.diff(dists[ok]) < 0).sum())
+        # in distance order, but for as many steps back as the reference's
+        # pages take: a federation's shard that opens more leaves while the
+        # pages merge can find items nearer than those already served
+        back = int((np.diff(np.concatenate([np.asarray(p[1], np.float64) for p in rpages])) < 0).sum())
+        bad += max(0, int((np.diff(dists[ok]) < 0).sum()) - back)
         if ok.any():
             x = ref.unit(reference.data[torch.as_tensor(ids[ok], device=qn.device)], torch.float64)
             d64 = ref.cos_dist(qn[r : r + 1], x)[0].cpu().numpy()

@@ -3,7 +3,8 @@
     python3 portbench/control.py --workload packed.batch128 --seeds 11 12 13 [--precision tfloat32]
 
 Puts the reference in the program's place at the cell's own size (a cell
-of BENCHMARK.json or of ``held_out/``): it builds the index and serves as
+of BENCHMARK.json or of ``held_out/``): it builds the index (a
+federation: each shard) and serves as
 many of the cell's requests as a run compares, every distance in
 ``--precision``, and holds what it served to the float64 reference by the
 run's own check.  At ``tfloat32`` (the precision just below the
@@ -57,34 +58,47 @@ def run_control(cell: Cell, seed: int, dtype, device: str, *, stats: bool = Fals
     cfg = cell.config
     rot = collection.rotation(seed, int(cfg["dim"]), device)
     data = collection.make(cfg, rot, device)
-    index = reference.build(data, cfg, dtype)
-    k, b = int(cfg["k"]), int(cfg["b"])
+    federated = "shards" in cfg
+    index = (reference.build_shards if federated else reference.build)(data, cfg, dtype)
+    k = int(cfg["k"])
     n_pages = 1 + int(cell.traffic["more_per_query"])
     queries = np.concatenate(requests(cell, data, rot))
-    served = reference.Searcher(data, index, cfg["semantics"], dtype, b, k).pages(queries, n_pages)
-    numbers, judged = check.build_numbers(data, cfg, index, root=None, seed=seed)
-    judge = reference.Searcher(data, judged, cfg["semantics"], torch.float64, b, k)
+    served = reference.make_searcher(data, index, cfg, dtype).pages(queries, n_pages)
+    numbers, judged = check.index_numbers(data, cfg, None, seed, stored=index)
+    judge = reference.make_searcher(data, judged, cfg, torch.float64)
     numbers.update(check.page_numbers(judge, queries, served))
     correct, checks = check.decide(numbers, cell.limits)
     out = {"workload": cell.name, "seed": seed, "precision": str(dtype).replace("torch.", ""),
            "correct": correct, "checks": checks}
     if stats:
-        sizes = np.array([len(m) for m in index.members])
+        indexes = index if federated else [index]
         sample = queries[:: max(1, len(queries) // 256)][:256]
         top = exact_top(data, sample, k)
         first = [p[0][0] for p in judge.pages(sample, 1)]
-        out["leaf_rows"] = {"leaves": len(sizes), "max": int(sizes.max()), "p50": float(np.median(sizes)),
-                            "p99": float(np.percentile(sizes, 99)), "over_cap": int((sizes > int(cfg["cluster_cap"])).sum()),
-                            "empty": int((sizes == 0).sum())}
+        out["leaf_rows"] = [leaf_rows(ix, cfg) for ix in indexes]
         out["recall_at_k"] = float(np.mean([len(np.intersect1d(a, t)) / k for a, t in zip(first, top)]))
-        # the reference's pages are slices of the leaves a search opens:
-        # they hold every page served only where those leaves hold n_pages * k rows
-        out["opened_rows_min"] = int(min(sum(len(judged.members[j]) for j in leaves) for leaves in judge.opened(queries)))
+        if federated:
+            probed = np.array([len(s) for s in judge.splits(queries)])
+            out["rows_probing"] = {str(m): int((probed == m).sum()) for m in range(1, len(indexes) + 1)}
+        else:
+            # the reference's pages are slices of the leaves a search opens:
+            # they hold every page served only where those leaves hold n_pages * k rows
+            out["opened_rows_min"] = int(min(sum(len(judged.members[j]) for j in leaves)
+                                             for leaves in judge.opened(queries)))
         out["served_rows"] = n_pages * k
         g_topic, g_size = collection.layout(cfg["data"], int(cfg["n_items"]))
         topic_of = np.repeat(g_topic, g_size)
-        out["topics_with_a_level1_node"] = int(len(np.unique(topic_of[index.leaders[: index.nodes[0]]])))
+        out["topics_with_a_level1_node"] = [int(len(np.unique(topic_of[ix.leaders[: ix.nodes[0]]]))) for ix in indexes]
     return out
+
+
+def leaf_rows(index: reference.Index, cfg: dict) -> dict:
+    """An index's leaf sizes, and the float32 block packed mode would
+    hold for it (every leaf padded to the largest)."""
+    sizes = np.array([len(m) for m in index.members])
+    return {"items": int(sizes.sum()), "leaves": len(sizes), "max": int(sizes.max()), "p50": float(np.median(sizes)),
+            "p99": float(np.percentile(sizes, 99)), "over_cap": int((sizes > int(cfg["cluster_cap"])).sum()),
+            "empty": int((sizes == 0).sum()), "packed_block_bytes": int(len(sizes) * sizes.max() * int(cfg["dim"]) * 4)}
 
 
 def main(argv=None) -> int:

@@ -10,6 +10,18 @@ per-layer metric is a file found by name:
   portbench/held_out/<cell>.json       entries of a cell not yet proven
   portbench/metrics/<metric>.py        ``read(run) -> float | None``
 
+A configuration's keys say what set-up builds and how it is opened: with
+``"shards": {"n": 4, "split": "contiguous"}`` the collection is cut into
+that many contiguous slices, each built as a shard of its own
+(``build_federation``, fstore shards and a ``federation.json``), opened
+by the same ``open_index(path, **open)``, which finds the manifest; the
+counters sum the shards' stores, the check reads every shard against the
+reference's derivation of its slice and the manifest against the shard
+files, and the reference routes, splits ``b`` and merges the shards'
+pages as ``reference.Federation`` says (``b_min``, ``top_m`` and
+``probe_m`` from ``open``).  Without the key the configuration is one
+index (``build_index``).
+
 The program under test is ``repro_torch`` (from ``src/``), imported only
 here and only inside functions.
 """
@@ -89,6 +101,7 @@ class Unit:
 
     queries: np.ndarray                         # [rows, dim]
     pages: list = field(default_factory=list)   # per page: (ids [rows, k], dists [rows, k])
+    routes: list | None = None                  # a federation's split of each row, {shard: b}
 
 
 @dataclass
@@ -101,7 +114,7 @@ class Run:
     latencies: dict
     window_s: float
     trace: Trace | None = None
-    reference: reference.Searcher | None = None
+    reference: reference.Searcher | reference.Federation | None = None
 
     @property
     def searches(self) -> int:
@@ -149,16 +162,33 @@ def _open(cfg: dict, path: Path, device: str):
     return searcher, Server(searcher, workers=int(cfg["workers"])), scorer
 
 
-def _counters(searcher, scorer) -> dict:
+def _build(cfg: dict, host: np.ndarray, path: Path, device: str) -> None:
+    """The configuration's index at ``path``: one index, or with
+    ``shards`` a federation of fstore shards."""
+    from repro_torch.core import ECPBuildConfig, build_federation, build_index
+
+    bcfg = ECPBuildConfig(levels=int(cfg["levels"]), metric=cfg["metric"], cluster_cap=int(cfg["cluster_cap"]),
+                          storage_dtype=cfg["storage_dtype"], seed=int(cfg["build_seed"]))
+    if "shards" not in cfg:
+        build_index(host, str(path), bcfg, device=device)
+        return
+    n_shards = len(reference.shard_bounds(len(host), cfg["shards"]))  # raises on a split it does not know
+    build_federation(host, path, n_shards=n_shards, cfg=bcfg, backend="fstore", device=device)
+
+
+def _counters(searcher, scorer, cfg: dict) -> dict:
     from repro_torch.kernels.distance_topk import ops
 
     out = {"distance_topk_launches": ops.launches["distance_topk"]}
     cache = getattr(searcher, "cache", None)
     if cache is not None:
         out.update(cache_hits=cache.hits, cache_misses=cache.misses)
-    store = getattr(searcher, "store", None)
-    if store is not None:
-        out["store_bytes_read"] = store.io.bytes_read
+    if "shards" in cfg:
+        stores = [searcher.shard(name).store for name in searcher.shard_names]
+    else:
+        stores = [s for s in [getattr(searcher, "store", None)] if s is not None]
+    if stores:
+        out["store_bytes_read"] = sum(s.io.bytes_read for s in stores)
     if scorer is not None:
         out["scorer_rows"] = list(scorer.rows)
     return out
@@ -178,6 +208,9 @@ def _serve(srv, req: traffic.Request, k: int, b: int, mores: int, unit: Unit, la
         rs, sid = srv.search(q, k, b=b)
     t1 = time.perf_counter()
     unit.pages.append((np.atleast_2d(rs.ids).copy(), np.atleast_2d(rs.dists).copy()))
+    routes = getattr(rs.query, "allocation", None)
+    if routes is not None:
+        unit.routes = routes if isinstance(routes, list) else [routes]
     times = []
     for _ in range(mores):
         t2 = time.perf_counter()
@@ -293,28 +326,38 @@ def _compare(cell: Cell, host: np.ndarray, index_path: Path, units: list, seed: 
     searched with."""
     cfg = cell.config
     data = torch.as_tensor(host).to(device)
-    numbers, judged = check.build_numbers(data, cfg, check.read_index(index_path), root=index_path, seed=seed)
-    searcher = reference.Searcher(data, judged, cfg["semantics"], torch.float64, int(cfg["b"]), int(cfg["k"]))
-    numbers.update(check.page_numbers(searcher, *_sample(units, int(cell.traffic["check_requests"]), seed)))
+    queries, served, routes = _sample(units, int(cell.traffic["check_requests"]), seed)
+    if "shards" in cfg:
+        entries, stored = check.read_federation(index_path)
+        for e, st in zip(entries, stored):
+            sizes = [len(m) for m in st.members]
+            print(f"portbench: shard {e['name']}: {sum(sizes)} items, {len(sizes)} leaves, "
+                  f"the largest {max(sizes, default=0)} rows", file=sys.stderr)
+        numbers, judged = check.index_numbers(data, cfg, index_path, seed, stored, entries)
+        routes = check.routes_by_shard(entries, routes)
+    else:
+        numbers, judged = check.index_numbers(data, cfg, index_path, seed)
+    searcher = reference.make_searcher(data, judged, cfg, torch.float64, tie=check.TIE)
+    numbers.update(check.page_numbers(searcher, queries, served, routes))
     return numbers, searcher
 
 
-def _sample(units: list, n: int, seed: int) -> tuple[np.ndarray, list]:
+def _sample(units: list, n: int, seed: int) -> tuple[np.ndarray, list, list]:
     """Up to ``n`` units drawn from the seed (all of them if fewer), as
-    (queries [rows, dim], [rows] lists of (ids, dists) pages)."""
+    (queries [rows, dim], [rows] lists of (ids, dists) pages, [rows]
+    splits or None)."""
     pick = units if len(units) <= n else [units[i] for i in sorted(
         np.random.default_rng([int(seed) % (1 << 64), 11]).choice(len(units), n, replace=False))]
     queries = np.concatenate([u.queries for u in pick])
     served = [[(p[0][r], p[1][r]) for p in u.pages] for u in pick for r in range(len(u.queries))]
-    return queries, served
+    routes = [r for u in pick for r in (u.routes or [None] * len(u.queries))]
+    return queries, served, routes
 
 
 def run(name: str, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
         workdir: Path, t_start: float | None = None, cell: Cell | None = None) -> tuple[dict, dict]:
     """One run of cell ``name``: (result line, checks).  ``workdir`` holds
     the index while the run lasts."""
-    from repro_torch.core import ECPBuildConfig, build_index
-
     t_start = time.perf_counter() if t_start is None else t_start
     cell = cell if cell is not None else Cell.find(name)
     cfg = cell.config
@@ -331,9 +374,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device: str = "cud
     index_path = workdir / "index"
     shutil.rmtree(index_path, ignore_errors=True)
     try:
-        bcfg = ECPBuildConfig(levels=int(cfg["levels"]), metric=cfg["metric"], cluster_cap=int(cfg["cluster_cap"]),
-                              storage_dtype=cfg["storage_dtype"], seed=int(cfg["build_seed"]))
-        build_index(host, str(index_path), bcfg, device=device)
+        _build(cfg, host, index_path, device)
         log("index built", t_start)
         searcher, srv, scorer = _open(cfg, index_path, device)
         log("index opened", t_start)
@@ -341,7 +382,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device: str = "cud
         log("warm", t_start)
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        before = _counters(searcher, scorer)
+        before = _counters(searcher, scorer, cfg)
         setup_s = time.perf_counter() - t_start
         gc.collect()
         gc.freeze()  # what set-up made stays out of the window's collections
@@ -359,7 +400,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device: str = "cud
                 prof.stop()
         gc.unfreeze()
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-        counters = _delta(before, _counters(searcher, scorer))
+        counters = _delta(before, _counters(searcher, scorer, cfg))
         srv.shutdown()
         del searcher, srv, scorer
         gc.collect()

@@ -11,6 +11,17 @@ every leaf under the last internal level ranked, the nearest ``b``
 scanned).  Items of the opened leaves are ranked by their distance; pages
 of ``k`` are consecutive slices of that ranking.
 
+A configuration with ``shards`` is a federation (``Federation``): the
+collection cut into contiguous slices, each built as an index of its own
+under the same settings (its own leader draw) and holding global ids.  A
+search routes by the ``b`` router centroids (every shard's level-1
+leaders) nearest the query, each a vote for its shard; ``allocate``
+splits ``b`` over the most-voted shards in proportion to their votes; each
+probed shard is searched at its share, and the pages merge the shards'
+emissions of ``k`` in distance order, a shard asked for its next ``k``
+once its last emission is used up (a best-first shard then opens more
+leaves when fewer than ``k`` of its staged items are left).
+
 ``dtype`` is the precision of every distance: float64 for the reference;
 ``TF32`` for the control (unit rows rounded to TF32's 10 mantissa bits,
 products summed in float32, as TF32 tensor cores take a float32 product),
@@ -224,8 +235,9 @@ class Searcher:
         dh = d.cpu().numpy()
         return [best_first(dh[r], self.index, self.b, self.k, self.mx_inc) for r in range(len(q))]
 
-    def pages(self, q: np.ndarray, n_pages: int):
-        """[rows] lists of ``n_pages`` (ids, distances) pages."""
+    def pages(self, q: np.ndarray, n_pages: int, routes=None):
+        """[rows] lists of ``n_pages`` (ids, distances) pages (``routes``:
+        a federation's; one index has none)."""
         qn = unit(torch.as_tensor(q, device=self.data.device), self.dtype)
         out = []
         for r, leaves in enumerate(self.opened(q)):
@@ -233,3 +245,255 @@ class Searcher:
             out.append([(ids[p * self.k : (p + 1) * self.k], d[p * self.k : (p + 1) * self.k])
                         for p in range(n_pages)])
         return out
+
+
+# ------------------------------------------------------------ federations
+def shard_bounds(n_items: int, spec: dict) -> list[tuple[int, int]]:
+    """The rows [lo, hi) of each shard of a ``shards`` block: ``n``
+    contiguous slices of as near equal size as whole rows allow."""
+    if spec.get("split", "contiguous") != "contiguous":
+        raise ValueError(f"unknown split {spec['split']!r}")
+    s = int(spec["n"])
+    return [(i * n_items // s, (i + 1) * n_items // s) for i in range(s)]
+
+
+def offset(index: Index, lo: int) -> Index:
+    """``index`` with its item ids (leaders, members) moved by ``lo``."""
+    return Index(index.leaders + lo, index.nodes, index.children, [m + lo for m in index.members])
+
+
+def build_shards(data: torch.Tensor, cfg: dict, dtype) -> list[Index]:
+    """Each shard's index as a build derives it from its slice, in global ids."""
+    return [offset(build(data[lo:hi], cfg, dtype), lo) for lo, hi in shard_bounds(data.shape[0], cfg["shards"])]
+
+
+def allocate(d: np.ndarray, owner: np.ndarray, b: int, n_shards: int, *, b_min: int = 1,
+             top_m: int | None = None, probe_m: int = 1) -> dict[int, int]:
+    """The effort split of one query: ``d`` its distance to each router
+    centroid, ``owner`` each centroid's shard.  The ``b`` nearest
+    centroids vote for their shards; at most ``top_m`` of the voted shards
+    are probed (most votes first, then the nearer centroid, then the lower
+    shard), and never more than ``b`` can fund at ``max(1, b_min) *
+    probe_m`` each; they share ``b`` in proportion to their votes, rounded
+    down, at least that floor each; what is left goes one by one from the
+    most-voted shard on, what is over comes back one by one from the
+    least-voted shard above its floor.  -> {shard: its share of ``b``}."""
+    b = max(1, int(b))
+    floor = max(1, int(b_min)) * max(1, int(probe_m))
+    votes = np.bincount(owner[np.argsort(d, kind="stable")[:b]], minlength=n_shards)
+    nearest = np.full(n_shards, np.inf)
+    np.minimum.at(nearest, owner, d)
+    cand = sorted((s for s in range(n_shards) if np.isfinite(nearest[s])),
+                  key=lambda s: (-votes[s], nearest[s], s))
+    cand = [s for s in cand if votes[s] > 0] or cand[:1]
+    m = len(cand) if top_m is None else max(1, min(int(top_m), len(cand)))
+    probe = cand[: min(m, max(1, b // floor))]
+    if len(probe) == 1:
+        return {probe[0]: b}
+    w = [int(votes[s]) for s in probe]
+    share = [max(floor, b * x // sum(w)) for x in w]
+    left, i = b - sum(share), 0
+    while left > 0:
+        share[i % len(probe)] += 1
+        left, i = left - 1, i + 1
+    while left < 0:
+        j = len(probe) - 1 - i % len(probe)
+        if share[j] > floor:
+            share[j] -= 1
+            left += 1
+        i += 1
+    return dict(zip(probe, share))
+
+
+def _tie_swaps(d: np.ndarray, owner: np.ndarray, tie: float):
+    """``d`` with the distances of two centroids of different shards
+    swapped, for each such pair that lies within ``tie``."""
+    order = np.argsort(d, kind="stable")
+    for a in range(len(order)):
+        for c in range(a + 1, len(order)):
+            i, j = order[a], order[c]
+            if d[j] - d[i] > tie:
+                break
+            if owner[i] != owner[j]:
+                swapped = d.copy()
+                swapped[[i, j]] = d[[j, i]]
+                yield swapped
+
+
+class _Stream:
+    """One probed shard's emissions for one query row: its items in
+    batches of ``k``, nearest first among those it has staged and not yet
+    emitted.  Best-first: one increment at the start (the ``b`` nearest
+    leaves, then on while fewer than ``k`` items are staged, ``b``
+    doubling at most ``mx_inc`` times), another whenever an emission finds
+    fewer than ``k`` staged items and nodes are left; empty leaves are
+    skipped uncounted.  Beam: the ``b`` leaves of the beam, nothing more."""
+
+    def __init__(self, fed: "Federation", shard: int, d_lead: torch.Tensor, qn: torch.Tensor, b: int):
+        self.fed, self.index, self.qn, self.b = fed, fed.shards[shard], qn, b
+        self.ids, self.d = np.zeros(0, np.int64), np.zeros(0)
+        self.inc, self.heap = 0, []
+        if fed.semantics == "beam":
+            self._stage([int(j) for j in beam(d_lead[None], self.index, b)[0].cpu().numpy() if j >= 0])
+        else:
+            self.d_lead = d_lead.cpu().numpy()
+            self.heap = [(float(self.d_lead[j]), j, 1, j) for j in range(self.index.nodes[0])]
+            heapq.heapify(self.heap)
+            self.seq = len(self.heap)
+            self._increment(fed.k)
+        self.buf, self.pos, self.done = self.emit(fed.k), 0, False
+
+    def _stage(self, leaves: list[int]) -> None:
+        if not leaves:
+            return
+        ids = np.concatenate([self.ids] + [self.index.members[j] for j in leaves])
+        d = np.concatenate([self.d, cos_dist(self.qn[None], self.fed.rows(ids[len(self.ids):]))[0].cpu().numpy()])
+        order = np.argsort(d, kind="stable")
+        self.ids, self.d = ids[order], d[order]
+
+    def _increment(self, k: int) -> None:
+        L, idx = self.index.levels, self.index
+        budget, count, staged, opened = self.b, 0, len(self.ids), []
+        while self.heap:
+            _, _, level, node = heapq.heappop(self.heap)
+            if level < L:
+                for c in idx.children[level - 1][node]:
+                    heapq.heappush(self.heap, (float(self.d_lead[c]), self.seq, level + 1, int(c)))
+                    self.seq += 1
+                continue
+            if len(idx.members[node]) == 0:
+                continue
+            opened.append(node)
+            count += 1
+            staged += len(idx.members[node])
+            if count >= budget:
+                if staged >= k:
+                    break
+                if self.fed.mx_inc == -1 or self.inc < self.fed.mx_inc:
+                    self.inc += 1
+                    budget *= 2
+                else:
+                    break
+        self._stage(opened)
+
+    def emit(self, k: int) -> list[tuple[float, int]]:
+        if len(self.ids) < k and self.heap:
+            self._increment(k)
+        out = list(zip(self.d[:k].tolist(), self.ids[:k].tolist()))
+        self.ids, self.d = self.ids[k:], self.d[k:]
+        return out
+
+    def head(self):
+        return self.buf[self.pos] if self.pos < len(self.buf) else None
+
+    def refill(self, k: int) -> None:
+        if not self.done:
+            self.buf, self.pos = self.emit(k), 0
+            self.done = not self.buf
+
+
+@dataclass
+class Federation:
+    """The reference put in a federation's place: ``shards`` (indexes in
+    global ids, shard order) routed, split and merged as the module's
+    docstring says; otherwise as ``Searcher``."""
+
+    data: torch.Tensor
+    shards: list[Index]
+    semantics: str
+    dtype: torch.dtype
+    b: int
+    k: int
+    b_min: int = 1
+    top_m: int | None = None
+    probe_m: int = 1
+    mx_inc: int = 4
+    tie: float = 0.0
+
+    def __post_init__(self):
+        if self.probe_m != 1:
+            raise NotImplementedError("the reference searches a shard one node at a time (probe_m 1)")
+
+    @functools.cached_property
+    def leads(self) -> list[torch.Tensor]:
+        """Each shard's unit leader rows in the computing dtype."""
+        return [self.rows(s.leaders) for s in self.shards]
+
+    @functools.cached_property
+    def owner(self) -> np.ndarray:
+        """The shard of each router centroid (each shard's level-1 nodes, in shard order)."""
+        return np.repeat(np.arange(len(self.shards)), [s.nodes[0] for s in self.shards])
+
+    def rows(self, ids: np.ndarray) -> torch.Tensor:
+        return unit(self.data[torch.as_tensor(ids, device=self.data.device)], self.dtype)
+
+    def route(self, d: np.ndarray, chosen: dict | None = None) -> dict[int, int]:
+        """The split of one query whose router distances are ``d``; the
+        program's ``chosen`` split stands where centroids of two shards
+        within ``tie`` of each other, taken in the other order, give it."""
+        args = (self.owner, self.b, len(self.shards))
+        kw = {"b_min": self.b_min, "top_m": self.top_m, "probe_m": self.probe_m}
+        own = allocate(d, *args, **kw)
+        if chosen is None or chosen == own:
+            return own
+        return chosen if any(allocate(v, *args, **kw) == chosen for v in _tie_swaps(d, self.owner, self.tie)) else own
+
+    def _distances(self, q: np.ndarray):
+        """Unit query rows, their distances to each shard's leaders, and
+        to the router centroids."""
+        qn = unit(torch.as_tensor(q, device=self.data.device), self.dtype)
+        d_lead = [cos_dist(qn, lead) for lead in self.leads]
+        d_router = torch.cat([d[:, : s.nodes[0]] for d, s in zip(d_lead, self.shards)], 1).cpu().numpy()
+        return qn, d_lead, d_router
+
+    def splits(self, q: np.ndarray) -> list[dict[int, int]]:
+        """Each query row's split of ``b``."""
+        d_router = self._distances(q)[2]
+        return [self.route(d) for d in d_router]
+
+    def pages(self, q: np.ndarray, n_pages: int, routes: list | None = None):
+        """[rows] lists of ``n_pages`` (ids, distances) pages; ``routes``:
+        the program's split of each row ({shard: b}, or None), kept only
+        within ``tie``."""
+        qn, d_lead, d_router = self._distances(q)
+        out = []
+        for r in range(len(q)):
+            split = self.route(d_router[r], routes[r] if routes else None)
+            streams = [_Stream(self, s, d_lead[s][r], qn[r], b) for s, b in split.items()]
+            out.append([_merge(streams, self.k, refill=p > 0) for p in range(n_pages)])
+        return out
+
+
+def _merge(streams: list[_Stream], k: int, refill: bool) -> tuple[np.ndarray, np.ndarray]:
+    """The next page of ``k`` over the streams, least (distance, id)
+    first.  With ``refill`` (a page after the first), a stream whose
+    emission is used up asks for its next one, before and while merging;
+    the first page merges the first emissions alone."""
+    if refill:
+        for st in streams:
+            if st.head() is None:
+                st.refill(k)
+    ids, dists = [], []
+    while len(ids) < k:
+        live = [st for st in streams if st.head() is not None]
+        if not live:
+            break
+        best = min(live, key=lambda st: st.head())
+        d, i = best.head()
+        best.pos += 1
+        dists.append(d)
+        ids.append(i)
+        if refill and best.head() is None:
+            best.refill(k)
+    return np.asarray(ids, np.int64), np.asarray(dists, np.float64)
+
+
+def make_searcher(data: torch.Tensor, index, cfg: dict, dtype, tie: float = 0.0):
+    """The reference in the program's place for configuration ``cfg``:
+    ``index`` one ``Index``, or with ``shards`` a list of them."""
+    b, k = int(cfg["b"]), int(cfg["k"])
+    if "shards" not in cfg:
+        return Searcher(data, index, cfg["semantics"], dtype, b, k)
+    o = cfg["open"]
+    return Federation(data, index, cfg["semantics"], dtype, b, k, b_min=int(o.get("b_min", 1)),
+                      top_m=o.get("top_m"), probe_m=int(o.get("probe_m", 1)), tie=tie)

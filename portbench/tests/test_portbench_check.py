@@ -36,9 +36,9 @@ def test_the_port_matches_the_reference(name, tiny, tmp_path):
 def test_incremental_browsing_serves_eleven_pages_a_search(tiny, tmp_path, monkeypatch):
     pages, orig = [], check.page_numbers
 
-    def page_numbers(reference, queries, served):
+    def page_numbers(reference, queries, served, routes=None):
         pages.extend(len(row) for row in served)
-        return orig(reference, queries, served)
+        return orig(reference, queries, served, routes)
 
     monkeypatch.setattr(check, "page_numbers", page_numbers)
     built = []
