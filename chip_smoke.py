@@ -7,10 +7,10 @@ Phases, none of whose failures is caught:
 
 1. device: the card's name and power limit (``nvidia-smi``); exits non-zero
    when ``torch.cuda.is_available()`` is false.
-2. kernels: builds the five CUDA sources in ``src/repro_torch/csrc`` (nvcc,
+2. kernels: builds the six CUDA sources in ``src/repro_torch/csrc`` (nvcc,
    sm_90a; prints the registers, shared memory and spills of the wgmma
-   flash kernel and of the three distance kernels' main-path
-   instantiations)
+   flash kernel, of the three distance kernels' main-path
+   instantiations and of the merge kernel)
    and holds the distance kernels against their plain PyTorch versions on
    the card at the main path's shapes, then at the edges of their designs:
    grouped n_rows of 0, 1, T-1, T, T+1 and 5360 (T the row tile) at k of 1,
@@ -36,7 +36,10 @@ Phases, none of whose failures is caught:
    median of 250 real rows and 500k in all): within 1e-5 of its plain version under l2,
    ip and cosine, a second launch bit-identical; timed, cosine and l2,
    against the plain version, ``torch.mm`` of the same real rows, and the
-   kernel's own bytes bound.
+   kernel's own bytes bound.  Packed mode's merge (``leaf_merge``) at the
+   same chunk (C=400): bit for bit the plain version's into an empty and a
+   full buffer, one kernel a call; timed against the plain version,
+   ``torch.topk`` of the masked keys, and its bytes bound.
 2a. recsys: the four architectures of ``configs/recsys_archs.py`` at full
    width, random parameters from a seeded generator on the card:
    ``serve_p99`` (a ``ctr_batch`` of 512; sigmoid(forward) on the card
@@ -124,11 +127,12 @@ Phases, none of whose failures is caught:
    with every leaf scanned, against the file-mode fp engine (8 queries; at
    b=64 the two traversals open different leaves); asserts the scan's
    peak device memory beyond the resident index; ``leaf_distances``
-   launches counted from 0.  A packed searcher on an
-   index of repeated rows keeps ties in index order (and launches
-   ``leaf_distances``); a copy whose top-k
-   puts ties against index order (planted) must fail that check, and a
-   copy on ``torch.topk`` (no promised tie order) is reported.
+   and ``leaf_merge`` launches counted from 0, one of each a chunk.  A
+   packed searcher on an index of repeated rows keeps ties in index order
+   (and launches both); with a copy of the merge kernel that puts ties in
+   reverse position order (planted) that check must fail, and a copy
+   whose rank stage runs on ``torch.topk`` (no promised tie order) is
+   reported.
 4. l2: the same steps at a smaller collection with metric l2.
 5. flash: holds the flash-attention kernels against their plain version
    on the card, by element and by row (the six cases of
@@ -300,6 +304,10 @@ FAULTS = {
                            "const bool have = l < m;", "const bool have = l < m - 1;"),
     "split_tail_mask": ("distance_topk", "distance_topk.cu",
                         "return min(a.N, r0 + a.rpb);", "return min(a.N - 1, r0 + a.rpb);"),
+    # packed mode's merge: equal distances in reverse position order (the
+    # tie part of a key, which decodes back to the same position)
+    "merge_ties_reversed": ("leaf_merge", "leaf_merge.cu",
+                            "{ return pos; }", "{ return 0x7fffffffu - pos; }"),
 }
 # the recsys retrieval tower (configs/shapes.py RECSYS_SHAPES["retrieval_cand"]:
 # one request against 1M candidates; k = 100 as the reference's retrieval
@@ -875,7 +883,8 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
     # the instantiations on the main path: int8 codes through the ring, float32 rows with 16-byte loads
     for name, kern in (("grouped_distance_topk", "grouped_tile_kernelIaLb1E"),
                        ("distance_topk", "full_select_kernelIfLb1E"),
-                       ("leaf_distances", "leaf_distances_kernelILi4EE")):
+                       ("leaf_distances", "leaf_distances_kernelILi4EE"),
+                       ("leaf_merge", "leaf_merge_kernel")):
         if name in _build.build_logs:
             res[f"{name}_ptxas"] = ptxas_report(_build.build_logs[name], kern)
             log(f"[kernels] {kern}, ptxas: {json.dumps(res[f'{name}_ptxas'])}")
@@ -1007,6 +1016,7 @@ def phase_kernels(res: dict, fault_builds: dict) -> None:
     res["topk"] = res["topk_by_n"][512]
     counters_at_rest()
     leaf_part(res)
+    merge_part(res)
 
 
 # ------------------------------------------------ packed mode's leaf scoring
@@ -1135,6 +1145,81 @@ def leaf_part(res: dict) -> None:
     log(f"[kernels] leaf_distances at the benchmark's scan chunk: l2/ip/cosine within 1e-5 of the plain version "
         f"(max abs err {err:.3g}), second launches bit-identical")
     res["leaf"] = {**out["cosine"], "l2": out["l2"], "max_abs_err": err}
+
+
+# ------------------------------------------------------ packed mode's merge
+MERGE_C = 400  # packed.batch128's buffer: max(4k, 256) at k = 100
+
+
+def merge_bound_ms(margs) -> tuple[float, str, dict]:
+    """Least time of the merge kernel on these inputs: each valid slot's
+    real rows read once (a float32 distance each), the slots (leaf id,
+    valid flag, the leaf's row count) and the buffer (distance and id)
+    read once, the new buffer written once and its ids from the chunk's
+    rows read once; bound by bytes (a comparison or two a key)."""
+    buf_d, _, _, _, n_rows, leaf_c, lvalid = margs
+    B, C = buf_d.shape
+    b = leaf_c.shape[1]
+    rows = int((n_rows[leaf_c] * lvalid).sum())
+    nbytes = rows * 4 + B * b * (8 + 1 + 4) + 2 * B * C * 12 + B * C * 8
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", {"rows": rows, "bytes": nbytes}
+
+
+def merge_part(res: dict) -> None:
+    """``leaf_merge`` at the benchmark's scan chunk (B=128, b=64, C=400; the
+    leaf kernel's distances on ``leaf_case``'s block): the kernel against
+    its plain version on the card (the merge as the searcher ran it before
+    the kernel) bit for bit, into an empty buffer (a search's first chunk,
+    as the benchmark's) and into that result (a later chunk), a second
+    launch identical, one launch counted a call and one kernel in a CUDA
+    graph; timed: the wrapper call (``ms``), the kernel on the profiler's
+    clock (``device_ms``), the plain version, ``torch.topk`` of the masked
+    [B, C + b * cap] keys (made beforehand) as the library yardstick, and
+    the kernel's bytes bound."""
+    import torch
+    from repro_torch.kernels import leaf_distances as ld
+    from repro_torch.kernels import leaf_merge as lm
+
+    args = leaf_case("cosine", 43)
+    q, _, emb, _, n_rows, leaf_c, lvalid = args
+    d = ld.leaf_distances(*args, "cosine")
+    g = torch.Generator(device="cuda").manual_seed(44)
+    leaf_ids = torch.randperm(LEAF_L * LEAF_CAP, device="cuda", generator=g).view(LEAF_L, LEAF_CAP)
+    B, C = LEAF_B, MERGE_C
+    empty = (torch.full((B, C), torch.inf, device="cuda"), torch.full((B, C), -1, dtype=torch.long, device="cuda"))
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    lm.reset_launches()
+    first = (*empty, d, leaf_ids, n_rows, leaf_c, lvalid)
+    got = lm.leaf_merge(*first)
+    leaf_c2 = torch.roll(leaf_c, 5, dims=1).contiguous()
+    d2 = ld.leaf_distances(q, None, emb, None, n_rows, leaf_c2, lvalid, "cosine")
+    second = (*got, d2, leaf_ids, n_rows, leaf_c2, lvalid)
+    for what, margs in (("into an empty buffer", first), ("into a full buffer", second)):
+        got, again = lm.leaf_merge(*margs), lm.leaf_merge(*margs)
+        want = lm.leaf_merge_ref(*margs)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, again, want):
+            assert torch.equal(bits(x), bits(z)), f"leaf_merge {what}: differs from the plain version"
+            assert torch.equal(bits(x), bits(y)), f"leaf_merge {what}: two launches differ"
+        assert bool(torch.isfinite(got[0]).all()), f"leaf_merge {what}: fewer than C rows kept"
+    assert lm.launches["leaf_merge"] == 5, lm.launches
+    op = lambda: lm.leaf_merge(*first)
+    mask = ((torch.arange(LEAF_CAP, device="cuda") < n_rows[leaf_c][..., None]) & lvalid[..., None]).reshape(B, -1)
+    keys = torch.cat([empty[0], torch.where(mask, d.reshape(B, -1), torch.inf)], dim=-1)
+    del mask
+    lib = lambda: torch.topk(keys, C, dim=1, largest=False, sorted=True)
+    t = {"ms": cuda_ms(op, 50), "device_ms": named_device_ms(op, "leaf_merge_kernel"),
+         "plain_ms": cuda_ms(lambda: lm.leaf_merge_ref(*first), 10),
+         "library_ms": cuda_ms(lib, 20), "kernels_per_call": captured_kernels(op),
+         "ms_full_buffer": cuda_ms(lambda: lm.leaf_merge(*second), 50)}
+    t["library_device_ms"], _ = device_time(lib, whole=False)
+    t["bound_ms"], t["bound_by"], t["counted"] = merge_bound_ms(first)
+    assert t["kernels_per_call"] == 1, f"leaf_merge makes {t['kernels_per_call']} kernels a call"
+    res["merge"] = t
+    log(f"[kernels] leaf_merge B={B} b={LEAF_b} L={LEAF_L} cap={LEAF_CAP} C={C} cosine, bit-identical to the "
+        f"plain version into an empty and a full buffer: " + json.dumps(t))
+    del args, q, emb, d, d2, keys, got, again, want, first, second
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ the k < N path
@@ -1559,20 +1644,11 @@ def topk_by_distance(d, ids, k):
     return v, torch.gather(ids, -1, order)
 
 
-def planted_topk(d, ids, k):
-    """The planted fault: a top-k whose ties come out against index order
-    (the last index first), by a stable sort of the reversed row."""
-    import torch
-
-    n = d.shape[-1]
-    order = (n - 1) - torch.sort(d.flip(-1), dim=-1, stable=True).indices[..., :k]
-    return torch.gather(d, -1, order), torch.gather(ids, -1, order)
-
-
-def packed_tie_check(work: Path, seed: int, res: dict) -> None:
+def packed_tie_check(work: Path, seed: int, res: dict, fault_builds: dict) -> None:
     """The packed searcher keeps equal distances in index order on an index
-    of repeated rows at the paper's width; a copy whose top-k breaks ties
-    by distance alone (the planted fault) must fail the same check."""
+    of repeated rows at the paper's width; with the merge kernel's planted
+    fault (ties in reverse position order) the same check must fail.  A
+    copy whose rank stage selects on ``torch.topk`` is reported."""
     from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, build_cfg
     from repro_torch.core import BatchedSearcher, build_index, load_packed
     from repro_torch.data.synthetic import clustered_vectors
@@ -1588,30 +1664,33 @@ def packed_tie_check(work: Path, seed: int, res: dict) -> None:
     reset_all_launches()
     rs = good.search(Qt, 40, b=4)
     launched = all_launches()
-    assert launched["leaf_distances"] > 0, launched
+    assert launched["leaf_distances"] > 0 and launched["leaf_merge"] == launched["leaf_distances"], launched
     groups = rs.dists.reshape(len(Qt), -1, copies)
     exact = float(np.mean(np.all(groups == groups[..., :1], axis=-1)))
     assert exact == 1.0, f"the copies' distances do not tie exactly ({exact:.3f} of groups do)"
     ties_in_index_order("packed ties", rs, copies)
     found = {}
-    for name, topk in (("torch.topk", topk_by_distance), ("planted", planted_topk)):
+    (fault,) = load_faults(fault_builds, "leaf_merge").values()
+    for name in ("torch.topk", "planted"):
         other = BatchedSearcher(packed)
-        other._topk = topk
+        if name == "torch.topk":
+            other._topk = topk_by_distance
         try:
-            ties_in_index_order(name, other.search(Qt, 40, b=4), copies)
+            with planted(fault) if name == "planted" else contextlib.nullcontext():
+                ties_in_index_order(name, other.search(Qt, 40, b=4), copies)
             found[name] = False
         except AssertionError as e:
             found[name] = str(e)
         del other
-    assert found["planted"], "the planted tie fault (ties against index order) passed the tie check"
+    assert found["planted"], "the planted merge fault (ties against position order) passed the tie check"
     res["serve"]["ties"] = {"groups_tied": exact, "launches": launched, **found}
     log(f"[serve] packed tie check on {len(data)} rows ({copies} copies each, dim {D}): ties in index "
-        f"order; planted fault (ties against index order) seen: {found['planted']}; a copy on "
-        f"torch.topk (no promised tie order) broke it here: {found['torch.topk']}")
+        f"order; planted merge fault (ties against position order) seen: {found['planted']}; a copy "
+        f"ranking on torch.topk (no promised tie order) broke it here: {found['torch.topk']}")
     shutil.rmtree(fs)
 
 
-def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> None:
+def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int, fault_builds: dict) -> None:
     """The serving path of ``launch/serve.py`` on the main phase's 200k
     collection, through ``Server``: (a) interactive quantized file mode,
     (b) the write path, (c) the 4-worker scheduler over snapshots while a
@@ -1802,7 +1881,8 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> 
     # distances, ids and mask, and the merge's inputs, sort and outputs
     limit = bs.scan_budget_bytes + 8 * len(Q) * (C + b * cap) * 8
     out["batched_launches"] = all_launches()
-    assert out["batched_launches"]["leaf_distances"] > 0, out["batched_launches"]
+    bl = out["batched_launches"]
+    assert bl["leaf_distances"] > 0 and bl["leaf_merge"] == bl["leaf_distances"], bl
     assert peak <= limit, f"the packed scan took {peak} B beyond the resident index (limit {limit})"
     state = rs.query.state
     r200 = bs.search(Q, 2 * k, b=b, b_internal=w)
@@ -1847,7 +1927,7 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int) -> 
     del bs, state
     torch.cuda.empty_cache()
     out["part_s"]["d"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
-    packed_tie_check(work, seed, res)
+    packed_tie_check(work, seed, res, fault_builds)
     out["part_s"]["ties"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
     w2 = bytes_written()
     out["bytes_written"] = None if w0 is None else w2 - w0
@@ -2263,7 +2343,8 @@ def phase_baselines(work: Path, data, Q, cfg, res: dict, built: dict) -> None:
     prs = pk.search(Q, k, b=b, b_internal=pk.info.nodes_per_level[0])
     out["packed_s"] = time.perf_counter() - t0
     out["packed_launches"] = all_launches()
-    assert out["packed_launches"]["leaf_distances"] > 0, out["packed_launches"]
+    pl = out["packed_launches"]
+    assert pl["leaf_distances"] > 0 and pl["leaf_merge"] == pl["leaf_distances"], pl
     del pk
     torch.cuda.empty_cache()
     n = FED_QUERIES
@@ -2707,20 +2788,23 @@ def mem_line() -> str:
 
 def reset_all_launches() -> None:
     from repro_torch.kernels import leaf_distances as lops
+    from repro_torch.kernels import leaf_merge as mops
     from repro_torch.kernels.distance_topk import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
     fops.reset_launches()
     dops.reset_launches()
     lops.reset_launches()
+    mops.reset_launches()
 
 
 def all_launches() -> dict:
     from repro_torch.kernels import leaf_distances as lops
+    from repro_torch.kernels import leaf_merge as mops
     from repro_torch.kernels.distance_topk import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
-    return {**fops.launches, **dops.launches, **lops.launches}
+    return {**fops.launches, **dops.launches, **lops.launches, **mops.launches}
 
 
 def within(what: str, o, e, rtol: float = RETR_TOL) -> float:
@@ -4258,7 +4342,7 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
         log(f"[federation] phase done at {time.time() - t_all:.1f} s")
         phase_baselines(work, data, Q, cfg, res, built)
         log(f"[baselines] phase done at {time.time() - t_all:.1f} s")
-        phase_serve(work, data, Q, cfg, res, built, args.seed)
+        phase_serve(work, data, Q, cfg, res, built, args.seed, fault_builds)
         log(f"[serve] phase done at {time.time() - t_all:.1f} s")
         (work / "main.blob").unlink()  # the fstore stays for the session, (e)
         cfg2 = ECPFSPaperConfig(**{**cfg.__dict__, "n_items": args.l2_items, "metric": "l2"})
@@ -4300,7 +4384,7 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
     log(f"[mesh] phase done at {time.time() - t_all:.1f} s")
     main_launches = res["main"]["launches"]
     g, t, f32k, sp = res["grouped"], res["topk"], res["flash_32k"], res["split"][RECSYS_WIDTHS[0]]
-    lf = res["leaf"]
+    lf, mg = res["leaf"], res["merge"]
     four = ("device_ms", "library_device_ms", "kernels_per_call")
     pr = res["main"]["per_round_ms"]
     # the launches of each kernel on the LM paths of this slice, counted from 0 around each
@@ -4391,6 +4475,19 @@ def run_phases(res: dict, args, fault_builds: dict, traces: tuple, t_all: float)
          "baselines_launches": {"packed": res["baselines"]["packed_launches"]["leaf_distances"],
                                 "bruteforce_ivf": res["baselines"]["launches"]["leaf_distances"]},
          **lm_paths("leaf_distances")},
+        {"name": "leaf_merge", "route": "cuda",
+         "source": "src/repro_torch/csrc/leaf_merge.cu",
+         "replaces": None, "replaces_why": "new: the JAX package's packed search merges with XLA's argsort",
+         "launches": res["serve"]["batched_launches"]["leaf_merge"], "max_abs_err": 0.0,
+         **{a: mg[a] for a in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                               "bound_by", "counted", "kernels_per_call", "ms_full_buffer")},
+         "shape": f"B={LEAF_B} b={LEAF_b} L={LEAF_L} cap={LEAF_CAP} C={MERGE_C}, the leaf kernel's cosine distances",
+         "ptxas": res.get("leaf_merge_ptxas"),
+         "serve_launches": {"packed": res["serve"]["batched_launches"]["leaf_merge"],
+                            "ties": res["serve"]["ties"]["launches"]["leaf_merge"]},
+         "baselines_launches": {"packed": res["baselines"]["packed_launches"]["leaf_merge"],
+                                "bruteforce_ivf": res["baselines"]["launches"]["leaf_merge"]},
+         **lm_paths("leaf_merge")},
     ]
     return kernels
 

@@ -27,10 +27,16 @@ leaf's real rows in place and scores them against only the queries whose
 beams chose it; on the CPU its plain version, which scores each distinct
 visited leaf, padded to the largest, once against every query in blocks
 of leaves sized to ``scan_budget_bytes`` and picks each query's rows out
-of the products.  For cosine the rows are unit-normalised once at load
-(the arithmetic the reference repeats on every scan); for l2 the rows'
-squared norms are computed once.  The distances are the reference's
-``jnp_distances`` in float32 (the reference runs XLA's products).
+of the products.  A chunk is merged into the buffer by
+``kernels.leaf_merge``: on the card one launch of the hand-written
+``csrc/leaf_merge.cu``, which selects each query's best C from its buffer
+and only the real rows of its valid slots, read in place; on the CPU its
+plain version, which masks the padding, appends the chunk to the buffer
+and keeps the best C of a stable sort.  For cosine the rows are
+unit-normalised once at load (the arithmetic the reference repeats on
+every scan); for l2 the rows' squared norms are computed once.  The
+distances are the reference's ``jnp_distances`` in float32 (the
+reference runs XLA's products).
 
 The host waits for the device (on a GPU) at three sites, and the plain
 scoring adds a fourth; each is counted as ``ecpfs.packed.host_syncs``
@@ -53,6 +59,7 @@ import torch
 from .. import tracing
 from ..device import resolve_device
 from ..kernels.leaf_distances import leaf_distances, scored_rows
+from ..kernels.leaf_merge import leaf_merge
 from .api import Query, ResultSet, SearchStats
 from .distances import _check, prepared_distances
 from .packed import PackedIndex
@@ -250,7 +257,6 @@ class BatchedSearcher:
     @torch.no_grad()
     def _scan_chunk(self, q: torch.Tensor, state: BatchedQueryState, b: int) -> BatchedQueryState:
         """Visit the next ``b`` ranked leaves; merge items into the buffer."""
-        B = q.shape[0]
         R = state.leaf_rank.shape[1]
         pos = state.next_ptr[:, None] + torch.arange(b, device=q.device)[None, :]  # [B, b]
         valid = pos < R
@@ -260,16 +266,9 @@ class BatchedSearcher:
         leaf_c = torch.clamp(leaf, min=0)
         d = self._leaf_dists(q, leaf_c, lvalid)                                   # [B, b, cap]
         with tracing.span("ecpfs.packed.merge", device=self.device):
-            mask = (self.leaf_mask[leaf_c] & lvalid[..., None]).reshape(B, -1)
             if tracing.enabled():
-                tracing.count("ecpfs.packed.rows_needed", mask.sum())
-            d = torch.where(mask, d.reshape(B, -1), torch.inf)
-            i = torch.where(mask, self.leaf_ids[leaf_c].reshape(B, -1), -1)
-            # merge with buffer, re-sort, keep best C
-            C = state.buf_d.shape[1]
-            buf_d, buf_i = self._topk(
-                torch.cat([state.buf_d, d], dim=-1), torch.cat([state.buf_i, i], dim=-1), C
-            )
+                tracing.count("ecpfs.packed.rows_needed", (self.n_rows[leaf_c] * lvalid).sum())
+            buf_d, buf_i = leaf_merge(state.buf_d, state.buf_i, d, self.leaf_ids, self.n_rows, leaf_c, lvalid)
         return BatchedQueryState(
             leaf_rank=state.leaf_rank,
             leaf_rank_d=state.leaf_rank_d,
@@ -289,8 +288,10 @@ class BatchedSearcher:
             rem_i = torch.cat(
                 [state.buf_i[:, k:], torch.full((B, k), -1, dtype=torch.int64, device=dev)], dim=-1
             )
+            # contiguous, as the merge takes it, also where k > C
             new = BatchedQueryState(
-                state.leaf_rank, state.leaf_rank_d, state.next_ptr, rem_d[:, :C], rem_i[:, :C]
+                state.leaf_rank, state.leaf_rank_d, state.next_ptr, rem_d[:, :C].contiguous(),
+                rem_i[:, :C].contiguous()
             )
             return out_d, out_i, new
 

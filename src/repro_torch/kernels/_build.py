@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("distance_topk", "grouped_distance_topk", "flash_attention", "flash_attention_wgmma",
-           "leaf_distances")
+           "leaf_distances", "leaf_merge")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +55,9 @@ SIGNATURES = {
     },
     "leaf_distances": {
         "leaf_distances_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "leaf_merge": {
+        "leaf_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import leaf_distances as ld
+from repro_torch.kernels import leaf_merge as lm
 from repro_torch.kernels.distance_topk import ops
 
 pytestmark = pytest.mark.cuda
@@ -197,8 +198,9 @@ def test_leaf_distances_edges(card, B, b, L, cap, D, offset):
 
 def test_packed_search_on_the_card_is_the_cpu_searchers_and_launches_once_a_chunk(card, tmp_path):
     """A packed search and two ``next`` on the card return the CPU
-    searcher's ids (distances within 1e-5), under each metric; the kernel
-    launches once for each scan chunk (``ecpfs.packed.score`` span)."""
+    searcher's ids (distances within 1e-5), under each metric; the leaf
+    kernel launches once for each scan chunk (``ecpfs.packed.score`` span)
+    and the merge kernel once for each merge (``ecpfs.packed.merge``)."""
     from repro_torch import tracing
     from repro_torch.core import BatchedSearcher, ECPBuildConfig, build_index, load_packed
 
@@ -211,14 +213,124 @@ def test_packed_search_on_the_card_is_the_cpu_searchers_and_launches_once_a_chun
         packed = load_packed(path)
         on_card, on_cpu = BatchedSearcher(packed, device="cuda"), BatchedSearcher(packed, device="cpu")
         ld.reset_launches()
+        lm.reset_launches()
         tracing.reset()
         with tracing.on():
             a = on_card.search(Q, 50, b=1)
             nexts = [a.query.next(50) for _ in range(2)]
-        chunks = tracing.snapshot()["spans"]["ecpfs.packed.score"]["count"]
+        spans = tracing.snapshot()["spans"]
+        chunks, merges = spans["ecpfs.packed.score"]["count"], spans["ecpfs.packed.merge"]["count"]
         tracing.reset()
         assert chunks >= 3 and ld.launches["leaf_distances"] == chunks
+        assert merges == chunks and lm.launches["leaf_merge"] == merges
         c = on_cpu.search(Q, 50, b=1)
         for x, y in [(a, c)] + list(zip(nexts, [c.query.next(50) for _ in range(2)])):
             assert np.array_equal(x.ids, y.ids), metric
             np.testing.assert_allclose(x.dists, y.dists, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------- packed mode's merge
+def _signed_zeros(shape, g):
+    """-0.0 and +0.0, a 0.5 now and then."""
+    zeros = torch.where(torch.rand(shape, generator=g) < 0.5, -0.0, 0.0)
+    return torch.where(torch.rand(shape, generator=g) < 0.3, 0.5, zeros)
+
+
+def _merge_case(kind, C, B, b, L, cap, seed=0):
+    """A scan chunk as ``_scan_chunk`` hands it to the merge, on the CPU:
+    ragged leaves (leaf 0 empty, leaf 1 full), unique item ids, NaN and
+    -inf past each leaf's rows and in the slots left out, a repeated leaf,
+    invalid slots and an exhausted tail (query 1); a sorted buffer, finite
+    for a share of C, then (+inf, -1).  ``kind``: "random" distances,
+    "ties" (a grid of five values), "same" (one value everywhere, buffer
+    included), "zeros" (-0.0 and +0.0 tied, as ip gives, and 0.5)."""
+    g = torch.Generator().manual_seed(seed)
+    n_rows = torch.randint(0, cap + 1, (L,), generator=g, dtype=torch.int32)
+    n_rows[0], n_rows[1] = 0, cap
+    leaf_ids = torch.randperm(L * cap, generator=g).view(L, cap).long()
+    leaf_c = torch.randint(0, L, (B, b), generator=g)
+    leaf_c[:, 1 % b] = 1
+    lvalid = torch.rand(B, b, generator=g) > 0.1
+    if B > 1 and b > 2:
+        lvalid[1, -2:] = False
+        leaf_c[1, -2:] = leaf_c[1, -3]
+    d = {"random": lambda: torch.rand(B, b, cap, generator=g),
+         "ties": lambda: torch.randint(0, 5, (B, b, cap), generator=g).float() / 4,
+         "same": lambda: torch.full((B, b, cap), 0.25),
+         "zeros": lambda: _signed_zeros((B, b, cap), g)}[kind]()
+    real = (torch.arange(cap) < n_rows[leaf_c][..., None]) & lvalid[..., None]
+    junk = torch.tensor([float("nan"), -float("inf")])[torch.randint(0, 2, (B, b, cap), generator=g)]
+    d = torch.where(real, d, junk)
+    n_fin = torch.randint(0, C + 1, (B,), generator=g)
+    n_fin[0] = 0
+    grid = {"same": lambda: torch.full((B, C), 0.25), "zeros": lambda: _signed_zeros((B, C), g)}.get(
+        kind, lambda: torch.randint(0, 5, (B, C), generator=g).float() / 4)()
+    buf_d = torch.sort(torch.where(torch.arange(C)[None, :] < n_fin[:, None], grid, torch.inf), dim=-1,
+                       stable=True).values
+    buf_i = torch.where(torch.isfinite(buf_d), torch.randint(10**6, 2 * 10**6, (B, C), generator=g), -1)
+    return buf_d, buf_i, d, leaf_ids, n_rows, leaf_c, lvalid
+
+
+def _merge_against_plain(args, card):
+    """The kernel on the card against the plain version on CPU copies, bit
+    for bit; a second launch identical.  Returns the kernel's output."""
+    lm.reset_launches()
+    on = [t.to(card) for t in args]
+    got = lm.leaf_merge(*on)
+    again = lm.leaf_merge(*on)
+    assert lm.launches["leaf_merge"] == 2
+    want = lm.leaf_merge_ref(*[t.cpu() for t in args])
+    for x, y, z in zip(got, again, want):
+        x, y = x.cpu(), y.cpu()
+        assert x.shape == z.shape and x.dtype == z.dtype
+        bits = (lambda t: t.view(torch.int32)) if x.dtype == torch.float32 else (lambda t: t)
+        assert torch.equal(bits(x), bits(z)), "the kernel differs from the plain version"
+        assert torch.equal(bits(x), bits(y)), "two launches differ"
+    return got
+
+
+def test_leaf_merge_at_the_main_paths_shape_is_the_plain_version(card):
+    """B = 128 queries, b = 64 leaves padded to 5248 rows of 1152 (median
+    250), C = 400: the leaf kernel's chunk merged into an empty buffer, and
+    a second chunk into that result, bit for bit the plain version's."""
+    args = _leaf_case(card, "cosine", B=128, b=64, L=96, cap=5248, D=1152)
+    n_rows = args[4]
+    g = torch.Generator().manual_seed(3)
+    leaf_ids = torch.randperm(96 * 5248, generator=g).view(96, 5248).long().to(card)
+    d = ld.leaf_distances(*args, "cosine")
+    C = 400
+    buf = (torch.full((128, C), torch.inf, device=card), torch.full((128, C), -1, dtype=torch.long, device=card))
+    buf = _merge_against_plain((*buf, d, leaf_ids, n_rows, args[5], args[6]), card)
+    assert bool(torch.isfinite(buf[0]).all())
+    leaf_c = torch.roll(args[5], 7, dims=1).contiguous()
+    d2 = ld.leaf_distances(args[0], None, args[2], None, n_rows, leaf_c, args[6], "cosine")
+    _merge_against_plain((*buf, d2, leaf_ids, n_rows, leaf_c, args[6]), card)
+
+
+@pytest.mark.parametrize("C", [256, 400, 4096])
+@pytest.mark.parametrize("kind", ["random", "ties", "same"])
+def test_leaf_merge_edges(card, kind, C):
+    """Heavy ties (the radix passes run into the positions), invalid and
+    exhausted slots, empty and full leaves; many candidates (radix passes)
+    and fewer than C finite ones (no pass)."""
+    for B, b, L, cap in ((16, 64, 40, 700), (5, 3, 6, 9), (1, 1, 2, 1)):
+        _merge_against_plain(_merge_case(kind, C, B, b, L, cap, seed=C), card)
+
+
+def test_leaf_merge_signed_zeros_under_ip(card):
+    """-0.0 ties with +0.0 in position order, and each keeps its sign, as
+    the plain version on the CPU; many rows and few."""
+    for B, b, L, cap, C in ((8, 64, 40, 700, 400), (4, 5, 6, 30, 256)):
+        out = _merge_against_plain(_merge_case("zeros", C, B, b, L, cap, seed=1), card)
+        z = out[0][out[0] == 0]
+        assert bool(torch.signbit(z).any()) and bool((~torch.signbit(z)).any())
+
+
+def test_leaf_merge_beyond_shared_memory(card):
+    """C past the shared-memory sort area (its keys in global scratch), and
+    b past the slots kept in shared memory."""
+    assert lm.sort_keys(20000) > lm.SORT_SMEM
+    _merge_against_plain(_merge_case("ties", 20000, 4, 64, 40, 1200, seed=2), card)
+    _merge_against_plain(_merge_case("random", 20000, 3, 4, 6, 50, seed=3), card)
+    assert lm.SLOTS_SMEM < 8200
+    _merge_against_plain(_merge_case("ties", 400, 3, 8200, 50, 4, seed=4), card)
