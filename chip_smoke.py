@@ -1650,7 +1650,9 @@ def packed_tie_check(work: Path, seed: int, res: dict, fault_builds: dict) -> No
     fault (ties in reverse position order) the same check must fail.  A
     copy whose rank stage selects on ``torch.topk`` is reported."""
     from repro_torch.configs.ecpfs_paper import ECPFSPaperConfig, build_cfg
-    from repro_torch.core import BatchedSearcher, build_index, load_packed
+    from unittest import mock
+
+    from repro_torch.core import BatchedSearcher, batched, build_index, load_packed
     from repro_torch.data.synthetic import clustered_vectors
 
     copies = 4
@@ -1673,10 +1675,9 @@ def packed_tie_check(work: Path, seed: int, res: dict, fault_builds: dict) -> No
     (fault,) = load_faults(fault_builds, "leaf_merge").values()
     for name in ("torch.topk", "planted"):
         other = BatchedSearcher(packed)
-        if name == "torch.topk":
-            other._topk = topk_by_distance
         try:
-            with planted(fault) if name == "planted" else contextlib.nullcontext():
+            with planted(fault) if name == "planted" else mock.patch.object(batched, "ascending_top_k",
+                                                                              topk_by_distance):
                 ties_in_index_order(name, other.search(Qt, 40, b=4), copies)
             found[name] = False
         except AssertionError as e:
@@ -1701,6 +1702,7 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int, fau
     from repro_torch.configs.ecpfs_paper import build_cfg
     from repro_torch.core import BatchedSearcher, build_index, open_index
     from repro_torch.kernels.distance_topk import ops
+    from repro_torch.kernels.leaf_distances.ref import SCAN_BUDGET_BYTES
     from repro_torch.launch.serve import Server
 
     out = res.setdefault("serve", {})
@@ -1879,7 +1881,7 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int, fau
     C = max(4 * k, 256)
     # the scan's own memory: one leaf block (the budget), the chunk's
     # distances, ids and mask, and the merge's inputs, sort and outputs
-    limit = bs.scan_budget_bytes + 8 * len(Q) * (C + b * cap) * 8
+    limit = SCAN_BUDGET_BYTES + 8 * len(Q) * (C + b * cap) * 8
     out["batched_launches"] = all_launches()
     bl = out["batched_launches"]
     assert bl["leaf_distances"] > 0 and bl["leaf_merge"] == bl["leaf_distances"], bl

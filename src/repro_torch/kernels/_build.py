@@ -157,6 +157,27 @@ def metric_code(metric: str) -> int:
     return METRIC_CODE[metric]
 
 
+def on_one_cuda_device(*ts) -> bool:
+    """Whether the inputs take a kernel's path (True) or the plain
+    version's (False, all on the CPU).  Fake tensors on the meta device, the
+    dry run's stand-ins for tensors on the card, take the kernel's path: a
+    custom op's fake kernel allocates the outputs and launches nothing."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "meta":
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        if all(isinstance(t, FakeTensor) for t in ts):
+            return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev} (cuda|cpu)")
+    return True
+
+
 @contextlib.contextmanager
 def on(device):
     """Launch on ``device``: enter it only when it is not the current one."""

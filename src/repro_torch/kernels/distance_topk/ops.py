@@ -58,27 +58,6 @@ def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
 
 
-def _on_one_cuda_device(*ts: torch.Tensor) -> bool:
-    """Whether the inputs take the kernel's path (True) or the plain
-    version's (False, all on the CPU).  Fake tensors on the meta device, the
-    dry run's stand-ins for tensors on the card, take the kernel's path: its
-    custom op's fake kernel allocates the outputs and launches nothing."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type == "meta":
-        from torch._subclasses.fake_tensor import FakeTensor
-
-        if all(isinstance(t, FakeTensor) for t in ts):
-            return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev} (cuda|cpu)")
-    return True
-
-
 # rows of a leaf one block of the grouped kernel scores (kTile in
 # csrc/grouped_distance_topk.cu, which checks it)
 GROUPED_TILE = 256
@@ -240,7 +219,7 @@ def distance_topk(q, c, k: int, metric: str = "l2"):
         raise ValueError(f"distance_topk expects q [B, D], c [N, D]; got {tuple(q.shape)}, {tuple(c.shape)}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if not _on_one_cuda_device(q, c):
+    if not _build.on_one_cuda_device(q, c):
         return distance_topk_ref(q, c, k, metric)
     if q.dtype != c.dtype or q.dtype not in DTYPE_CODE:
         raise TypeError(f"distance_topk kernel takes float32/float16/bfloat16 q and c of one dtype, got {q.dtype}, {c.dtype}")
@@ -311,7 +290,7 @@ def grouped_distance_topk_tensors(
         raise ValueError(f"unknown quant format {qformat!r} (int8|float16)")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if not _on_one_cuda_device(q, codes, scales, offsets, n_rows):
+    if not _build.on_one_cuda_device(q, codes, scales, offsets, n_rows):
         return grouped_distance_topk_ref(q, codes, scales, offsets, n_rows, k, metric, qformat)
     G, N, D = codes.shape
     if q.shape != (G, D):

@@ -24,7 +24,6 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
-from ..distance_topk.ops import _on_one_cuda_device
 from .ref import flash_attention_ref
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -159,7 +158,7 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = True, scale: float 
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     ts = (q, k, v) if kv_lens is None else (q, k, v, kv_lens)
-    if not _on_one_cuda_device(*ts):
+    if not _build.on_one_cuda_device(*ts):
         return flash_attention_ref(q, k, v, kv_lens=kv_lens, causal=causal, scale=scale)
     return _launch(route(q.dtype, q.shape[-1]), q, k, v, kv_lens, causal, scale)
 
@@ -173,6 +172,6 @@ def flash_attention_mma(q, k, v, *, kv_lens=None, causal: bool = True, scale: fl
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     ts = (q, k, v) if kv_lens is None else (q, k, v, kv_lens)
-    if not _on_one_cuda_device(*ts):
+    if not _build.on_one_cuda_device(*ts):
         raise ValueError("flash_attention_mma launches a CUDA kernel: the inputs must be on a CUDA device")
     return _launch("mma" if q.dtype == torch.bfloat16 else "fma", q, k, v, kv_lens, causal, scale)

@@ -2,14 +2,17 @@
 
 Dispatch goes by the device of the inputs: tensors on the CPU take the
 plain PyTorch version (``ref.leaf_distances_ref``: distinct leaves padded
-to the largest, in blocks of ``budget_bytes``), tensors on a CUDA device
-launch the hand-written kernel (``csrc/leaf_distances.cu``: each query
-against only the real rows of its own leaves, read in place) or raise;
-there is no switch that sends CUDA tensors to the plain version.
+to the largest, in blocks of ``ref.SCAN_BUDGET_BYTES``), tensors on a
+CUDA device launch the hand-written kernel (``csrc/leaf_distances.cu``:
+each query against only the real rows of its own leaves, read in place)
+or raise; there is no switch that sends CUDA tensors to the plain version.
 ``launches`` counts the calls that launched the kernel (a plain integer,
 bumped only there); ``reset_launches()`` zeroes it.  Every such call is
 one launch of the kernel, after ``leaf_work`` groups the pairs by leaf
 with a few PyTorch operations on the device and no host synchronisation.
+The plain version's ``torch.unique`` is a host synchronisation, counted
+as ``ecpfs.packed.host_syncs`` while tracing is on; ``rows_scored`` gives
+either implementation's ``ecpfs.packed.rows_scored``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import threading
 
 import torch
 
+from ... import tracing
 from .. import _build
 from .ref import leaf_distances_ref
 
@@ -65,6 +69,16 @@ def scored_rows(leaf_c: torch.Tensor, lvalid: torch.Tensor, n_rows: torch.Tensor
     return (warps * tiles).sum()
 
 
+def rows_scored(leaf_c: torch.Tensor, lvalid: torch.Tensor, n_rows: torch.Tensor, cap: int):
+    """The (row, pair) distances that the implementation the inputs' device
+    selects computes: on a CUDA device the kernel's (``scored_rows``), on
+    the CPU the plain version's, every query against each distinct leaf
+    padded to ``cap`` rows (an int, after a host synchronisation)."""
+    if leaf_c.device.type == "cpu":
+        return leaf_c.shape[0] * torch.unique(leaf_c).numel() * cap
+    return scored_rows(leaf_c, lvalid, n_rows)
+
+
 def _check_args(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric):
     if q.ndim != 2 or emb.ndim != 3 or q.shape[1] != emb.shape[2]:
         raise ValueError(f"leaf_distances expects q [B, D], emb [L, cap, D]; got {tuple(q.shape)}, {tuple(emb.shape)}")
@@ -97,8 +111,7 @@ def _check_args(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric):
     return dev
 
 
-def leaf_distances(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric: str,
-                   budget_bytes: int = 2 << 30) -> torch.Tensor:
+def leaf_distances(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric: str) -> torch.Tensor:
     """Distances of each query to the rows of its visited leaves: q [B, D]
     prepared queries (unit-normalised for cosine), q_sq [B] and sq [L, cap]
     squared norms (l2 alone, else None), emb [L, cap, D] the leaves padded
@@ -106,15 +119,15 @@ def leaf_distances(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric: str,
     prefix), leaf_c [B, b] int64 leaf ids in [0, L), lvalid [B, b] bool ->
     [B, b, cap] float32: out[i, j, r] is query i's distance to row r of
     leaf leaf_c[i, j] for r < n_rows in a valid slot; the entries past
-    n_rows and in invalid slots hold no distance (the caller masks them).
-    ``budget_bytes`` sizes the plain version's blocks of leaves."""
+    n_rows and in invalid slots hold no distance (the caller masks them)."""
     m = _build.metric_code(metric)
     dev = _check_args(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric)
     (B, b), cap = leaf_c.shape, emb.shape[1]
     if leaf_c.numel() == 0:
         return torch.empty((B, b, cap), device=dev)
     if dev.type == "cpu":
-        return leaf_distances_ref(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric, budget_bytes)
+        tracing.count("ecpfs.packed.host_syncs")
+        return leaf_distances_ref(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric)
     lib = _build.lib("leaf_distances")
     L, D = emb.shape[0], emb.shape[2]
     perm, first, ends = leaf_work(leaf_c, lvalid, n_rows)

@@ -1,6 +1,7 @@
 """The port stands alone: no source file under ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or the JAX package ``repro``, and
-importing the port loads neither."""
+importing the port loads neither.  Its kernels stand below its core: no
+module under ``src/repro_torch/kernels`` imports ``repro_torch.core``."""
 import ast
 import os
 import subprocess
@@ -12,15 +13,25 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+KERNELS = sorted((PORT / "kernels").rglob("*.py"))
 
 
 def _imported(path: Path) -> set:
+    """The modules ``path`` imports, anywhere in it; a relative import
+    resolved against the package of a file under ``src``, with each
+    imported name as a possible submodule."""
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             names.add(node.module)
+        elif isinstance(node, ast.ImportFrom) and node.level > 0:
+            package = path.relative_to(SRC).parent.parts
+            base = ".".join(package[: len(package) - node.level + 1])
+            module = f"{base}.{node.module}" if node.module else base
+            names.add(module)
+            names.update(f"{module}.{a.name}" for a in node.names)
     return names
 
 
@@ -34,6 +45,12 @@ def test_the_port_has_sources():
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(SRC.parent)) for p in FILES])
 def test_no_source_imports_jax_or_repro(path):
     bad = {m for m in _imported(path) if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.relative_to(SRC.parent)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", KERNELS, ids=[str(p.relative_to(SRC.parent)) for p in KERNELS])
+def test_no_kernel_module_imports_the_core(path):
+    bad = {m for m in _imported(path) if m == "repro_torch.core" or m.startswith("repro_torch.core.")}
     assert not bad, f"{path.relative_to(SRC.parent)} imports {sorted(bad)}"
 
 

@@ -12,6 +12,7 @@ from repro_torch.core.batched import BatchedSearcher, _prefix_rows, _prep_querie
 from repro_torch.core.packed import load_packed
 from repro_torch.kernels import _build
 from repro_torch.kernels import leaf_distances as ld
+from repro_torch.kernels.leaf_distances.ref import SCAN_BUDGET_BYTES
 
 METRICS = ["l2", "ip", "cosine"]
 
@@ -71,12 +72,17 @@ def _case(metric, seed=0, B=9, b=5, L=13, cap=24, D=20):
 @pytest.mark.parametrize("budget_leaves", [None, 1, 3])
 def test_plain_version_is_the_old_scoring_on_real_rows(metric, budget_leaves):
     """Bit for bit, padding and invalid slots included; with one block of
-    leaves (the default budget) and with blocks of 1 and 3."""
+    leaves (the wrapper, at the default budget) and with blocks of 1 and 3."""
     qp, q_sq, emb, sq, n_rows, leaf_c, lvalid = _case(metric)
     B, (L, cap, D) = qp.shape[0], emb.shape
-    budget = 2 << 30 if budget_leaves is None else budget_leaves * cap * (D + B) * 4
+    args = (qp, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric)
     ld.reset_launches()
-    got = ld.leaf_distances(qp, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric, budget)
+    if budget_leaves is None:
+        budget = SCAN_BUDGET_BYTES
+        got = ld.leaf_distances(*args)
+    else:
+        budget = budget_leaves * cap * (D + B) * 4
+        got = ld.leaf_distances_ref(*args, budget)
     assert ld.launches["leaf_distances"] == 0  # CPU tensors launch nothing
     old = _old_leaf_dists(qp, q_sq, emb, sq, leaf_c, metric, budget)
     real = (torch.arange(cap) < n_rows[leaf_c][..., None]) & lvalid[..., None]
@@ -213,11 +219,11 @@ def test_no_slots_give_an_empty_result():
 
 
 def test_rows_follow_the_mask_and_a_mask_that_is_no_prefix_raises():
-    mask = torch.zeros(4, 8, dtype=torch.bool)
+    mask = np.zeros((4, 8), dtype=bool)
     for u, n in enumerate((0, 3, 8, 1)):
         mask[u, :n] = True
     rows = _prefix_rows(mask)
-    assert rows.dtype == torch.int32 and rows.tolist() == [0, 3, 8, 1]
+    assert rows.dtype == np.int32 and rows.tolist() == [0, 3, 8, 1]
     mask[1, 5] = True
     with pytest.raises(ValueError, match="not a prefix"):
         _prefix_rows(mask)
@@ -232,12 +238,13 @@ def searcher(tmp_path_factory):
     data = rng.standard_normal((900, 12)).astype(np.float32)
     path = str(tmp_path_factory.mktemp("leafd") / "fs")
     ref_build(data, path, RefCfg(levels=2, metric="l2", cluster_cap=32))
-    return BatchedSearcher(load_packed(path), device="cpu"), rng.standard_normal((5, 12)).astype(np.float32)
+    packed = load_packed(path)
+    return BatchedSearcher(packed, device="cpu"), rng.standard_normal((5, 12)).astype(np.float32), packed.leaf.mask
 
 
 def test_searcher_holds_each_leafs_real_rows_and_its_cpu_search_launches_nothing(searcher):
-    bs, Q = searcher
-    assert torch.equal(bs.n_rows, bs.leaf_mask.sum(dim=1).to(torch.int32))
+    bs, Q, leaf_mask = searcher
+    assert torch.equal(bs.n_rows, torch.from_numpy(leaf_mask.sum(axis=1)).to(torch.int32))
     assert bs.n_rows.dtype == torch.int32 and int(bs.n_rows.min()) >= 1
     ld.reset_launches()
     rs = bs.search(Q, 10, b=4)

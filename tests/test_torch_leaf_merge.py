@@ -166,22 +166,24 @@ def searcher(tmp_path_factory):
     data = rng.standard_normal((1500, 16)).astype(np.float32)
     path = str(tmp_path_factory.mktemp("leafm") / "fs")
     build_index(data, path, ECPBuildConfig(levels=2, metric="ip", cluster_cap=30), device="cpu")
-    return BatchedSearcher(load_packed(path), device="cpu"), rng.standard_normal((7, 16)).astype(np.float32)
+    packed = load_packed(path)
+    return (BatchedSearcher(packed, device="cpu"), rng.standard_normal((7, 16)).astype(np.float32),
+            torch.as_tensor(packed.leaf.mask))
 
 
 def test_cpu_search_launches_no_merge_and_counts_the_old_masks_rows(searcher, monkeypatch):
     """A CPU search and its ``next`` merge through the plain version (no
     launch) and equal the old inline merge chunk for chunk; the counter
     ``ecpfs.packed.rows_needed`` is the old mask's sum over the chunks."""
-    bs, Q = searcher
+    bs, Q, leaf_mask = searcher
     real = batched.leaf_merge
     seen = []
 
     def recording(buf_d, buf_i, d, leaf_ids, n_rows, leaf_c, lvalid):
         out = real(buf_d, buf_i, d, leaf_ids, n_rows, leaf_c, lvalid)
-        old = _old_merge(buf_d, buf_i, d, bs.leaf_mask, leaf_ids, leaf_c, lvalid)
+        old = _old_merge(buf_d, buf_i, d, leaf_mask, leaf_ids, leaf_c, lvalid)
         seen.append((_bits_equal(out[0], old[0]) and torch.equal(out[1], old[1]),
-                     int((bs.leaf_mask[leaf_c] & lvalid[..., None]).sum())))
+                     int((leaf_mask[leaf_c] & lvalid[..., None]).sum())))
         return out
 
     monkeypatch.setattr(batched, "leaf_merge", recording)
@@ -203,7 +205,7 @@ def test_cpu_search_launches_no_merge_and_counts_the_old_masks_rows(searcher, mo
 def test_next_past_the_buffer_keeps_merging(searcher):
     """A ``next`` of more than the buffer holds (k > C: a page of C) leaves
     the state's buffer contiguous, so a later chunk still merges."""
-    bs, Q = searcher
+    bs, Q, _ = searcher
     rs = bs.search(Q, 10, b=1, buffer_cap=16)
     nx = rs.query.next(20)
     assert nx.ids.shape == (len(Q), 16)

@@ -4,6 +4,8 @@ gives the reference's arrays, and ``BatchedSearcher(device="cpu")`` gives
 the reference ``BatchedSearcher``'s ids exactly, its distances within
 1e-5 relative (1e-6 absolute) and its ``leaves_opened``, through
 ``next(k)``; ``open_index``'s "auto" mode picks packed mode on a GPU."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,8 @@ from repro_torch.core import api as port_api
 from repro_torch.core import batched as port_batched
 from repro_torch.core.batched import BatchedSearcher
 from repro_torch.core.packed import load_packed
+from repro_torch.kernels.leaf_distances import ops as leaf_distances_ops
+from repro_torch.kernels.leaf_distances.ref import leaf_distances_ref
 
 D, K = 16, 10
 RTOL, ATOL = 1e-5, 1e-6
@@ -82,46 +86,21 @@ def test_batched_search_and_next_match_the_reference(built, bi):
     _close(r1.query.next(K), o1.query.next(K))
 
 
-def test_scan_in_leaf_blocks_is_the_same_function(built):
+def test_scan_in_leaf_blocks_is_the_same_function(built, monkeypatch):
     """A scan budget of a few leaves (many blocks a chunk) and the default
     (one block) give the same results."""
     _, _, path, Q = built
     packed = load_packed(path)
-    one = BatchedSearcher(packed, device="cpu")
-    few = BatchedSearcher(packed, device="cpu")
+    bs = BatchedSearcher(packed, device="cpu")
+    a = bs.search(Q, K, b=8)
+    a_next = a.query.next(K)
     cap = packed.leaf.max_children
-    few.scan_budget_bytes = 3 * cap * (D + len(Q)) * 4
-    a, b = one.search(Q, K, b=8), few.search(Q, K, b=8)
+    monkeypatch.setattr(leaf_distances_ops, "leaf_distances_ref",
+                        functools.partial(leaf_distances_ref, budget_bytes=3 * cap * (D + len(Q)) * 4))
+    b = bs.search(Q, K, b=8)
     assert np.array_equal(a.ids, b.ids)
     np.testing.assert_allclose(a.dists, b.dists, rtol=RTOL, atol=ATOL)
-    assert np.array_equal(a.query.next(K).ids, b.query.next(K).ids)
-
-
-def test_scorer_hook_is_called_with_the_reference_shapes(built):
-    metric, _, path, Q = built
-    packed = load_packed(path)
-    seen = []
-
-    def scorer(q, c):
-        seen.append((tuple(q.shape), tuple(c.shape)))
-        return torch.stack([_dist_rows(q[i], c[i], metric) for i in range(len(q))])
-
-    plain = BatchedSearcher(packed, device="cpu").search(Q, K, b=4)
-    hooked = BatchedSearcher(packed, device="cpu", scorer=scorer).search(Q, K, b=4)
-    cap = packed.leaf.max_children
-    assert seen and all(s == ((len(Q), D), (len(Q), 4 * cap, D)) for s in seen)
-    assert np.array_equal(plain.ids, hooked.ids)
-    np.testing.assert_allclose(plain.dists, hooked.dists, rtol=RTOL, atol=ATOL)
-
-
-def _dist_rows(q, c, metric):
-    if metric == "ip":
-        return -(c @ q)
-    if metric == "l2":
-        return (q * q).sum() + (c * c).sum(-1) - 2.0 * (c @ q)
-    qn = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-12)
-    cn = c / torch.clamp(torch.linalg.vector_norm(c, dim=-1, keepdim=True), min=1e-12)
-    return 1.0 - cn @ qn
+    assert np.array_equal(a_next.ids, b.query.next(K).ids)
 
 
 def test_ties_keep_index_order_on_repeated_rows(tmp_path):
@@ -234,6 +213,9 @@ def test_open_index_auto_picks_packed_on_a_gpu(built, monkeypatch):
     _, _, path, _ = built
     # on the CPU: file mode
     assert isinstance(open_index(path, device="cpu"), ECPIndex)
+    # the leaf scorer hook is file mode's alone
+    with pytest.raises(TypeError, match="scorer"):
+        open_index(path, mode="packed", scorer=lambda *a: None, device="cpu")
     # told the device is CUDA: packed mode, on that device
     made = {}
 

@@ -99,8 +99,8 @@ def test_on_under_the_profiler_each_stage_and_sync_is_counted(packed, queries):
     q = torch.as_tensor(queries)
     with torch.no_grad():
         rank = packed.rank_leaves(q, max(B_LEAVES, 8))[0].numpy()
-    sizes = packed.leaf_mask.sum(dim=1).numpy()
-    cap = packed.leaf_mask.shape[1]
+    sizes = packed.n_rows.numpy()
+    cap = packed.leaf.emb.shape[1]
     R = rank.shape[1]
     scored = needed = 0
     for c in range(chunks):
