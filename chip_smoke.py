@@ -1671,6 +1671,12 @@ def packed_tie_check(work: Path, seed: int, res: dict, fault_builds: dict) -> No
     exact = float(np.mean(np.all(groups == groups[..., :1], axis=-1)))
     assert exact == 1.0, f"the copies' distances do not tie exactly ({exact:.3f} of groups do)"
     ties_in_index_order("packed ties", rs, copies)
+    # the same shape twice more: captured into CUDA graphs, then replayed
+    for n in range(2):
+        again = good.search(Qt, 40, b=4)
+        assert np.array_equal(again.ids, rs.ids) and np.array_equal(again.dists, rs.dists), \
+            f"packed ties: search {n + 2} (a CUDA graph's replay) differs from the first, eager one"
+    assert len(good._graphs) == 1, "the tie check's shape was not captured"
     found = {}
     (fault,) = load_faults(fault_builds, "leaf_merge").values()
     for name in ("torch.topk", "planted"):
@@ -1886,6 +1892,48 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int, fau
     bl = out["batched_launches"]
     assert bl["leaf_distances"] > 0 and bl["leaf_merge"] == bl["leaf_distances"], bl
     assert peak <= limit, f"the packed scan took {peak} B beyond the resident index (limit {limit})"
+    # the same shape again: its second search captures it into CUDA graphs
+    # (the memory their pool holds read around it), the third replays them
+    pooled = graph_pool_bytes()
+    rs2, sid2 = bsrv.search(Q, k=k, b=b, b_internal=w)
+    nx2 = bsrv.more(sid2, k)
+    out["graph_pool_bytes"] = graph_pool = graph_pool_bytes() - pooled
+    assert len(bs._graphs) == 1, "serve (d)'s second search of its shape did not capture it"
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    rs3, sid3 = bsrv.search(Q, k=k, b=b, b_internal=w)
+    nx3 = bsrv.more(sid3, k)
+    replay_peak = torch.cuda.max_memory_allocated() - resident
+    out["replayed_launches"] = all_launches()
+    assert out["replayed_launches"] == bl, f"a replayed search + more launched {out['replayed_launches']}, not {bl}"
+    assert replay_peak <= limit, f"the replayed scan took {replay_peak} B beyond the index (limit {limit})"
+    for n, (a, m) in enumerate(((rs2, nx2), (rs3, nx3))):
+        for what, x, y in (("search", a, rs), ("more", m, nx)):
+            assert np.array_equal(x.ids, y.ids) and np.array_equal(x.dists, y.dists), \
+                f"serve (d) {what} {n + 2} (captured, then replayed) differs from the first, eager one"
+    bsrv.close(sid2)
+    bsrv.close(sid3)
+    # the profiler's kernel records of a replayed search + more, apart from
+    # the launch counters: each packed kernel as often as eagerly
+    names = {"leaf_distances": "leaf_distances_kernel", "leaf_merge": "leaf_merge_kernel"}
+    want = {n: bl[n] for n in names}
+
+    def replayed():
+        r, i = bsrv.search(Q, k=k, b=b, b_internal=w)
+        bsrv.more(i, k)
+        bsrv.close(i)
+
+    seen = []
+    for _ in range(8):
+        ks = [e.name for e in traced_kernels(replayed, 1)]
+        seen.append({n: sum(kn in x for x in ks) for n, kn in names.items()})
+        # a dropped record can only hide a launch, never add one
+        assert all(seen[-1][n] <= want[n] for n in names), f"replayed kernels {seen} against {want}"
+        if seen[-1] == want:
+            break
+    assert seen[-1] == want, f"no trace of a replayed search kept its kernels: {seen} against {want}"
+    out["replayed_profiled"] = {"kernels": seen[-1], "traces": len(seen)}
     state = rs.query.state
     r200 = bs.search(Q, 2 * k, b=b, b_internal=w)
     assert np.array_equal(nx.ids, r200.ids[:, k:]) and np.array_equal(nx.dists, r200.dists[:, k:]), \
@@ -1915,12 +1963,16 @@ def phase_serve(work: Path, data, Q, cfg, res: dict, built: dict, seed: int, fau
     bsrv.close(sid)
     out["batched"] = {"summary": bsrv.stats.summary(), "device_bytes": bs.device_bytes,
                       "scan_peak_bytes": int(peak), "scan_peak_limit": int(limit),
+                      "replay_scan_peak_bytes": int(replay_peak),
                       "leaves": n_leaves, "cap_padded": cap, "max_abs_err": err,
                       "overlap_with_file_mode_at_b": overlap}
     log(f"[serve] (d) packed: resident {bs.device_bytes / 1e9:.3f} GB ({n_leaves} leaves padded to {cap} rows), "
         f"loaded in {out['packed_load_s']:.3f} s; 128 queries k={k} b={b} b_internal={w}: "
         f"{out['batched_search_s'] * 1e3:.3f} ms, more({k}) {out['batched_more_s'] * 1e3:.3f} ms; scan peak "
-        f"{peak / 1e9:.3f} GB beyond the index (limit {limit / 1e9:.3f}); host scan of the same leaves agrees "
+        f"{peak / 1e9:.3f} GB beyond the index (limit {limit / 1e9:.3f}); the shape's 2nd search captured "
+        f"(graphs' pool {graph_pool / 1e9:.3f} GB), the 3rd replayed: pages bit-identical, launches "
+        f"{out['replayed_launches']}, profiled kernels {out['replayed_profiled']}, scan peak "
+        f"{replay_peak / 1e9:.3f} GB; host scan of the same leaves agrees "
         f"(32 queries) "
         f"(max abs err {err:.3g}); next = ranks {k}-{2 * k - 1} of k={2 * k}; with every leaf scanned, ids agree "
         f"with file mode (8 queries); at b={b} the two traversals share {overlap:.4f} of their top {k}; launches "
@@ -2786,6 +2838,17 @@ def mem_line() -> str:
     free, total = torch.cuda.mem_get_info()
     return (f"free {free / 2**30:.3f} GiB of {total / 2**30:.3f} GiB (allocated "
             f"{torch.cuda.memory_allocated() / 2**30:.3f}, reserved {torch.cuda.memory_reserved() / 2**30:.3f})")
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds for CUDA graphs: its segments in
+    pools other than the default one, allocated or not (a capture empties
+    the default pool's cache, so ``memory_reserved`` around it reads the
+    release, not the graphs)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
 def reset_all_launches() -> None:

@@ -48,9 +48,30 @@ test per pass and the three copies; a ``next`` the same without the
 upload.  The stages' spans are
 ``ecpfs.packed.upload``, ``.rank``, ``.score``, ``.merge``, ``.advance``
 (its test ``.advance.wait``), ``.emit`` and ``.result``.
+
+On a CUDA device a search shape (``B``, ``b``, ``b_internal``, ``C``)
+runs eagerly at its first search on a searcher, which builds the
+kernels, and is captured when the next search has the same shape into
+three CUDA graphs, one a span (``_Graphs``), each recorded from the body
+the eager path runs: *rank* (``_rank``, ``rank_leaves``' body, and
+``_start``: the queries prepared and the state's initial buffers),
+*score* (``_score``: a chunk's positions and the ``leaf_distances``
+launch, ``leaf_work`` included) and *merge* (``_merge``: the
+``leaf_merge`` launch and the pointer moved on).  From then on a search
+replays rank, score and merge, and a further chunk copies its session's
+queries and state in and replays score and merge, under the searcher's
+lock from the copy in to the copy out; a session keeps copies, never the
+graphs' static tensors.  Each span times its replay alone (the events
+are recorded around it, never captured; the copies lie outside); each
+replayed chunk counts one launch of each kernel and one
+``ecpfs.packed.graph_replays``; a capture counts one
+``ecpfs.packed.graph_captures``.  A searcher keeps ``GRAPH_SHAPES``
+shapes; others stay eager, as does every search on the CPU.  The graphs'
+memory pool is not in ``device_bytes`` (the resident index alone).
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,6 +79,9 @@ import torch
 
 from .. import tracing
 from ..device import resolve_device
+from ..kernels import _build
+from ..kernels import leaf_distances as _ld
+from ..kernels import leaf_merge as _lm
 from ..kernels.leaf_distances import leaf_distances, rows_scored
 from ..kernels.leaf_distances.ref import prepared_distances
 from ..kernels.leaf_merge import leaf_merge
@@ -66,7 +90,13 @@ from .api import Query, ResultSet, SearchStats
 from .distances import _check
 from .packed import PackedIndex
 
-__all__ = ["BatchedQuery", "BatchedQueryState", "BatchedSearcher"]
+__all__ = ["GRAPH_SHAPES", "BatchedQuery", "BatchedQueryState", "BatchedSearcher"]
+
+# search shapes a searcher keeps captured on a CUDA device; further shapes
+# run eagerly.  The benchmark's traffic searches one shape (128 rows, b 64,
+# C 400: a 172 MB static [B, b, cap] block at 1M items); a second lets one
+# more steady shape replay while the pools stay within two shapes' memory.
+GRAPH_SHAPES = 2
 
 
 @dataclass
@@ -120,16 +150,60 @@ def _prefix_rows(mask: np.ndarray) -> np.ndarray:
     return n.astype(np.int32)
 
 
+def _chunk_slots(leaf_rank: torch.Tensor, next_ptr: torch.Tensor, w: int):
+    """The next ``w`` ranked leaves of each query: (leaf_c [B, w] int64
+    leaf ids clamped into range, lvalid [B, w] bool the slots that hold a
+    leaf)."""
+    R = leaf_rank.shape[1]
+    pos = next_ptr[:, None] + torch.arange(w, device=leaf_rank.device)[None, :]  # [B, w]
+    valid = pos < R
+    pos_c = torch.clamp(pos, max=R - 1)
+    leaf = torch.gather(leaf_rank, -1, pos_c)                                    # [B, w]
+    return torch.clamp(leaf, min=0), valid & (leaf >= 0)
+
+
+class _Graphs:
+    """One search shape's device work on one searcher, captured as three
+    CUDA graphs over static tensors from the bodies the eager path runs:
+    ``rank`` (``_rank`` and ``_start``) reads ``q`` and writes ``qp``,
+    ``q_sq`` and ``state``; ``score`` (``_score``) reads them and writes
+    the chunk's slots and distances; ``merge`` (``_merge``) writes ``out``,
+    the state after the chunk.  The three share one memory pool: they
+    replay in the order they were captured (rank, score, merge) or as
+    score and merge alone, and each reads only tensors that stay alive.  A
+    capture runs outside every span and counts no launch."""
+
+    def __init__(self, s: "BatchedSearcher", B: int, D: int, b: int, bi: int, C: int):
+        dev = s.device
+        self.q = torch.empty((B, D), device=dev)
+        self.rank, self.score, self.merge = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(dev):
+            with torch.cuda.graph(self.rank, pool=pool, capture_error_mode="thread_local"):
+                self.qp, self.q_sq, self.state = s._start(self.q, s._rank(self.q, bi)[0], C)
+            self.w = min(b, self.state.leaf_rank.shape[1])
+            with torch.cuda.graph(self.score, pool=pool, capture_error_mode="thread_local"):
+                self.leaf_c, self.lvalid, self.d = s._score(self.qp, self.q_sq, self.state, self.w)
+            with torch.cuda.graph(self.merge, pool=pool, capture_error_mode="thread_local"):
+                self.out = s._merge(self.state, self.leaf_c, self.lvalid, self.d, self.w)
+
+
+def _owned(out: BatchedQueryState, leaf_rank: torch.Tensor) -> BatchedQueryState:
+    """A session's copy of a replay's state ``out``, over its ranked leaves."""
+    return BatchedQueryState(leaf_rank, out.next_ptr.clone(), out.buf_d.clone(), out.buf_i.clone())
+
+
 class BatchedQuery(Query):
     """Handle over the device-resident state of one batched search call."""
 
     def __init__(self, searcher: "BatchedSearcher", qp: torch.Tensor, q_sq, state: BatchedQueryState,
-                 *, b: int, single: bool):
+                 *, b: int, single: bool, graphs: _Graphs | None = None):
         self._searcher = searcher
         self._q = (qp, q_sq)  # the queries as the scan takes them
         self._state = state
         self._b = b
         self._single = single
+        self._graphs = graphs  # the search shape's graphs, if it replayed
 
     @property
     def state(self) -> BatchedQueryState:
@@ -138,12 +212,13 @@ class BatchedQuery(Query):
 
     def next(self, k: int) -> ResultSet:
         self._ensure_open()
-        d, i, self._state = self._searcher._advance(*self._q, self._state, k, self._b)
+        d, i, self._state = self._searcher._advance(*self._q, self._state, k, self._b, self._graphs)
         return self._searcher._result(d, i, self._state, self._single, self)
 
     def close(self) -> None:
         self._q = None
         self._state = None
+        self._graphs = None
         super().close()
 
 
@@ -171,10 +246,15 @@ class BatchedSearcher:
         self.leaf = rows(leaf.emb)                                                # [n_leaves, cap, D]
         self.leaf_ids = torch.as_tensor(leaf.ids).to(dev).long()                 # [n_leaves, cap]
         self.n_rows = torch.from_numpy(_prefix_rows(np.asarray(leaf.mask))).to(dev)  # [n_leaves] int32
+        self._lock = threading.Lock()  # the graphs: capture, and each replay from copy in to copy out
+        self._graphs: dict[tuple, _Graphs] = {}
+        self._last = None  # the shape of the last search that asked for graphs
+        self._stream = None  # the stream of the last replay
 
     @property
     def device_bytes(self) -> int:
-        """Bytes of the resident packed index on the device."""
+        """Bytes of the resident packed index on the device (not the CUDA
+        graphs' memory pool)."""
         n = self.root.nbytes + self.leaf.nbytes
         n += sum(lv.rows.nbytes + lv.ids.numel() * 8 + lv.mask.numel() for lv in self.levels)
         n += self.leaf_ids.numel() * 8 + self.n_rows.numel() * 4
@@ -185,66 +265,150 @@ class BatchedSearcher:
     def rank_leaves(self, q: torch.Tensor, b_internal: int):
         """[B, D] queries -> ranked candidate leaves [B, R] (+ distances)."""
         with tracing.span("ecpfs.packed.rank", device=self.device):
-            B = q.shape[0]
-            qp, q_sq = _prep_queries(q, self.metric)
-            d = prepared_distances(qp, q_sq, self.root.emb, self.root.sq, self.metric)  # [B, n1]
-            n1 = d.shape[-1]
-            if not self.levels:  # L == 1: root children are the leaves
-                order = torch.sort(d, dim=-1, stable=True).indices
-                return order, torch.gather(d, -1, order)
-            b = min(b_internal, n1)
-            ar = torch.arange(n1, device=d.device).expand(B, n1)
-            _, node = ascending_top_k(d, ar, b)
-            rows_b = torch.arange(B, device=d.device)[:, None]
-            for li, lv in enumerate(self.levels):
-                full = prepared_distances(qp, q_sq, lv.rows.emb, lv.rows.sq, self.metric).view(B, -1, lv.ids.shape[1])
-                cd = full[rows_b, node]                                 # [B, b, maxc]
-                cm = lv.mask[node]
-                cd = torch.where(cm, cd, torch.inf)
-                cid = torch.where(cm, lv.ids[node], -1)
-                flat_d = cd.reshape(B, -1)
-                flat_i = cid.reshape(B, -1)
-                if li == len(self.levels) - 1:
-                    order = torch.sort(flat_d, dim=-1, stable=True).indices  # rank ALL leaves seen
-                    return torch.gather(flat_i, -1, order), torch.gather(flat_d, -1, order)
-                bb = min(b_internal, flat_d.shape[-1])
-                _, node = ascending_top_k(flat_d, flat_i, bb)
-                node = torch.clamp(node, min=0)                         # guard -1 pads
-            raise AssertionError("unreachable")
+            return self._rank(q, b_internal)
+
+    def _rank(self, q: torch.Tensor, b_internal: int):
+        """``rank_leaves``' work, outside its span (a capture takes it)."""
+        B = q.shape[0]
+        qp, q_sq = _prep_queries(q, self.metric)
+        d = prepared_distances(qp, q_sq, self.root.emb, self.root.sq, self.metric)  # [B, n1]
+        n1 = d.shape[-1]
+        if not self.levels:  # L == 1: root children are the leaves
+            order = torch.sort(d, dim=-1, stable=True).indices
+            return order, torch.gather(d, -1, order)
+        b = min(b_internal, n1)
+        ar = torch.arange(n1, device=d.device).expand(B, n1)
+        _, node = ascending_top_k(d, ar, b)
+        rows_b = torch.arange(B, device=d.device)[:, None]
+        for li, lv in enumerate(self.levels):
+            full = prepared_distances(qp, q_sq, lv.rows.emb, lv.rows.sq, self.metric).view(B, -1, lv.ids.shape[1])
+            cd = full[rows_b, node]                                 # [B, b, maxc]
+            cm = lv.mask[node]
+            cd = torch.where(cm, cd, torch.inf)
+            cid = torch.where(cm, lv.ids[node], -1)
+            flat_d = cd.reshape(B, -1)
+            flat_i = cid.reshape(B, -1)
+            if li == len(self.levels) - 1:
+                order = torch.sort(flat_d, dim=-1, stable=True).indices  # rank ALL leaves seen
+                return torch.gather(flat_i, -1, order), torch.gather(flat_d, -1, order)
+            bb = min(b_internal, flat_d.shape[-1])
+            _, node = ascending_top_k(flat_d, flat_i, bb)
+            node = torch.clamp(node, min=0)                         # guard -1 pads
+        raise AssertionError("unreachable")
+
+    def _start(self, q: torch.Tensor, leaf_rank: torch.Tensor, C: int):
+        """A search's set-up from its [B, D] queries and ranked leaves ->
+        (qp, q_sq, state): the queries prepared for the scan, and the
+        state of a zero pointer and empty buffers of C."""
+        B = q.shape[0]
+        qp, q_sq = _prep_queries(q, self.metric)
+        state = BatchedQueryState(
+            leaf_rank=leaf_rank,
+            next_ptr=torch.zeros((B,), dtype=torch.int64, device=self.device),
+            buf_d=torch.full((B, C), torch.inf, device=self.device),
+            buf_i=torch.full((B, C), -1, dtype=torch.int64, device=self.device),
+        )
+        return qp.contiguous(), q_sq, state  # contiguous, as leaf_distances takes it
 
     # ------------------------------------------------------------- stage 2
-    def _leaf_dists(self, qp: torch.Tensor, q_sq, leaf_c: torch.Tensor, lvalid: torch.Tensor) -> torch.Tensor:
-        """Distances of each prepared query to every row of its visited
-        leaves: ``[B, D]`` x ``leaf_c [B, b]`` -> ``[B, b, cap]``.  The merge
-        masks the rows past each leaf's real ones and the slots ``lvalid``
-        leaves out: neither version puts a distance there."""
-        with tracing.span("ecpfs.packed.score", device=self.device):
-            if tracing.enabled():
-                tracing.count("ecpfs.packed.rows_scored",
-                              rows_scored(leaf_c, lvalid, self.n_rows, self.leaf.emb.shape[1]))
-            return leaf_distances(qp, q_sq, self.leaf.emb, self.leaf.sq, self.n_rows, leaf_c, lvalid, self.metric)
+    def _score(self, qp: torch.Tensor, q_sq, state: BatchedQueryState, w: int):
+        """The next ``w`` ranked leaves of each query and the distances of
+        each prepared query to their rows -> (leaf_c [B, w], lvalid [B, w],
+        d [B, w, cap]).  The merge masks the rows past each leaf's real
+        ones and the slots ``lvalid`` leaves out: neither version of
+        ``leaf_distances`` puts a distance there."""
+        leaf_c, lvalid = _chunk_slots(state.leaf_rank, state.next_ptr, w)
+        d = leaf_distances(qp, q_sq, self.leaf.emb, self.leaf.sq, self.n_rows, leaf_c, lvalid, self.metric)
+        return leaf_c, lvalid, d
+
+    def _merge(self, state: BatchedQueryState, leaf_c, lvalid, d, w: int) -> BatchedQueryState:
+        """The state after a chunk of ``w`` leaves: its items merged into
+        the buffer, the pointer moved past them."""
+        buf_d, buf_i = leaf_merge(state.buf_d, state.buf_i, d, self.leaf_ids, self.n_rows, leaf_c, lvalid)
+        return BatchedQueryState(state.leaf_rank, state.next_ptr + w, buf_d, buf_i)
+
+    def _count_scored(self, leaf_c: torch.Tensor, lvalid: torch.Tensor) -> None:
+        if tracing.enabled():
+            tracing.count("ecpfs.packed.rows_scored", rows_scored(leaf_c, lvalid, self.n_rows, self.leaf.emb.shape[1]))
+
+    def _count_needed(self, leaf_c: torch.Tensor, lvalid: torch.Tensor) -> None:
+        if tracing.enabled():
+            tracing.count("ecpfs.packed.rows_needed", (self.n_rows[leaf_c] * lvalid).sum())
 
     @torch.no_grad()
-    def _scan_chunk(self, qp: torch.Tensor, q_sq, state: BatchedQueryState, b: int) -> BatchedQueryState:
-        """Visit the next ``b`` ranked leaves; merge items into the buffer."""
-        R = state.leaf_rank.shape[1]
-        pos = state.next_ptr[:, None] + torch.arange(b, device=qp.device)[None, :]  # [B, b]
-        valid = pos < R
-        pos_c = torch.clamp(pos, max=R - 1)
-        leaf = torch.gather(state.leaf_rank, -1, pos_c)                          # [B, b]
-        lvalid = valid & (leaf >= 0)
-        leaf_c = torch.clamp(leaf, min=0)
-        d = self._leaf_dists(qp, q_sq, leaf_c, lvalid)                            # [B, b, cap]
+    def _scan_chunk(self, qp: torch.Tensor, q_sq, state: BatchedQueryState, w: int,
+                    g: _Graphs | None = None) -> BatchedQueryState:
+        """Visit the next ``w`` ranked leaves; merge items into the buffer.
+        With ``g`` (under the lock, its inputs in place) each stage is a
+        replay of its graph, and the state returned is ``g``'s static one."""
+        with tracing.span("ecpfs.packed.score", device=self.device):
+            if g is None:
+                leaf_c, lvalid, d = self._score(qp, q_sq, state, w)
+            else:
+                g.score.replay()
+                leaf_c, lvalid = g.leaf_c, g.lvalid
+            self._count_scored(leaf_c, lvalid)
         with tracing.span("ecpfs.packed.merge", device=self.device):
-            if tracing.enabled():
-                tracing.count("ecpfs.packed.rows_needed", (self.n_rows[leaf_c] * lvalid).sum())
-            buf_d, buf_i = leaf_merge(state.buf_d, state.buf_i, d, self.leaf_ids, self.n_rows, leaf_c, lvalid)
-        return BatchedQueryState(
-            leaf_rank=state.leaf_rank,
-            next_ptr=state.next_ptr + b,
-            buf_d=buf_d,
-            buf_i=buf_i,
-        )
+            self._count_needed(leaf_c, lvalid)
+            if g is None:
+                return self._merge(state, leaf_c, lvalid, d, w)
+            g.merge.replay()
+        _ld.add_launch()
+        _lm.add_launch()
+        tracing.count("ecpfs.packed.graph_replays")
+        return g.out
+
+    # ------------------------------------------------------- CUDA graphs
+    def _graphs_for(self, B: int, D: int, b: int, bi: int, C: int) -> _Graphs | None:
+        """The graphs of this search shape, captured when it follows a
+        search of the same shape on this searcher; None (run eagerly) on
+        the CPU, at a shape's first search in a row and past
+        ``GRAPH_SHAPES``."""
+        if self.device.type != "cuda" or B == 0:
+            return None
+        key = (B, b, bi, C)
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is None and key == self._last and len(self._graphs) < GRAPH_SHAPES:
+                g = self._graphs[key] = _Graphs(self, B, D, b, bi, C)
+                tracing.count("ecpfs.packed.graph_captures")
+            self._last = key
+            return g
+
+    def _enter_replay(self) -> None:
+        """Under the lock: order this replay after the last one when they
+        run on different streams (the static tensors are shared)."""
+        stream = torch.cuda.current_stream(self.device)
+        if self._stream is not None and self._stream != stream:
+            stream.wait_stream(self._stream)
+        self._stream = stream
+
+    @torch.no_grad()
+    def _replay_search(self, g: _Graphs, q: torch.Tensor):
+        """Rank ``q`` and scan its first chunk by replay -> (qp, q_sq,
+        state), copies the caller owns.  The copies in and out lie outside
+        the spans, which time the replays alone."""
+        with self._lock, _build.on(self.device):
+            self._enter_replay()
+            g.q.copy_(q)
+            with tracing.span("ecpfs.packed.rank", device=self.device):
+                g.rank.replay()
+            out = self._scan_chunk(g.qp, g.q_sq, g.state, g.w, g)
+            q_sq = None if g.q_sq is None else g.q_sq.clone()
+            return g.qp.clone(), q_sq, _owned(out, g.state.leaf_rank.clone())
+
+    @torch.no_grad()
+    def _replay_next_chunk(self, g: _Graphs, qp: torch.Tensor, q_sq, state: BatchedQueryState):
+        """A further chunk of a session's state by replay, its queries and
+        state copied in; the session keeps its own ranked leaves."""
+        with self._lock, _build.on(self.device):
+            self._enter_replay()
+            g.qp.copy_(qp)
+            if q_sq is not None:
+                g.q_sq.copy_(q_sq)
+            for name in ("leaf_rank", "next_ptr", "buf_d", "buf_i"):
+                getattr(g.state, name).copy_(getattr(state, name))
+            return _owned(self._scan_chunk(g.qp, g.q_sq, g.state, g.w, g), state.leaf_rank)
 
     @staticmethod
     def _emit(state: BatchedQueryState, k: int):
@@ -284,24 +448,24 @@ class BatchedSearcher:
             q = q[None, :]
         B = q.shape[0]
         bi = b_internal if b_internal is not None else max(b, 8)
-        leaf_rank, _ = self.rank_leaves(q, bi)
-        qp, q_sq = _prep_queries(q, self.metric)
-        qp = qp.contiguous()  # as leaf_distances takes it
         C = buffer_cap if buffer_cap is not None else max(4 * k, 256)
-        state = BatchedQueryState(
-            leaf_rank=leaf_rank,
-            next_ptr=torch.zeros((B,), dtype=torch.int64, device=self.device),
-            buf_d=torch.full((B, C), torch.inf, device=self.device),
-            buf_i=torch.full((B, C), -1, dtype=torch.int64, device=self.device),
-        )
-        state = self._scan_chunk(qp, q_sq, state, min(b, leaf_rank.shape[1]))
-        d, i, state = self._advance(qp, q_sq, state, k, b)
-        return self._result(d, i, state, single, BatchedQuery(self, qp, q_sq, state, b=b, single=single))
+        graphs = self._graphs_for(B, q.shape[1], b, bi, C)
+        if graphs is not None:
+            qp, q_sq, state = self._replay_search(graphs, q)
+        else:
+            leaf_rank, _ = self.rank_leaves(q, bi)
+            qp, q_sq, state = self._start(q, leaf_rank, C)
+            state = self._scan_chunk(qp, q_sq, state, min(b, leaf_rank.shape[1]))
+        d, i, state = self._advance(qp, q_sq, state, k, b, graphs)
+        return self._result(d, i, state, single,
+                            BatchedQuery(self, qp, q_sq, state, b=b, single=single, graphs=graphs))
 
-    def _advance(self, qp: torch.Tensor, q_sq, state: BatchedQueryState, k: int, b: int):
+    def _advance(self, qp: torch.Tensor, q_sq, state: BatchedQueryState, k: int, b: int,
+                 graphs: _Graphs | None = None):
         """Emit the next k items, scanning further leaves if needed (the
         host waits once per loop pass, at the test, and on the CPU once per
-        further chunk, at the plain scoring's ``torch.unique``)."""
+        further chunk, at the plain scoring's ``torch.unique``); a chunk
+        replays ``graphs`` where given."""
         with tracing.span("ecpfs.packed.advance"):
             R = state.leaf_rank.shape[1]
             # scan until every query has k buffered candidates or leaves exhaust
@@ -313,7 +477,10 @@ class BatchedSearcher:
                     done = bool(torch.all((have >= k) | exhausted))
                 if done:
                     break
-                state = self._scan_chunk(qp, q_sq, state, min(b, R))
+                if graphs is not None:
+                    state = self._replay_next_chunk(graphs, qp, q_sq, state)
+                else:
+                    state = self._scan_chunk(qp, q_sq, state, min(b, R))
             return self._emit(state, k)
 
     def _result(self, d, i, state: BatchedQueryState, single: bool, query) -> ResultSet:

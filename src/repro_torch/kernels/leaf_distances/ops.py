@@ -7,7 +7,9 @@ CUDA device launch the hand-written kernel (``csrc/leaf_distances.cu``:
 each query against only the real rows of its own leaves, read in place)
 or raise; there is no switch that sends CUDA tensors to the plain version.
 ``launches`` counts the calls that launched the kernel (a plain integer,
-bumped only there); ``reset_launches()`` zeroes it.  Every such call is
+bumped there, not while a CUDA graph is being captured, and by
+``add_launch()`` for each replay of a graph that holds it);
+``reset_launches()`` zeroes it.  Every such call is
 one launch of the kernel, after ``leaf_work`` groups the pairs by leaf
 with a few PyTorch operations on the device and no host synchronisation.
 The plain version's ``torch.unique`` is a host synchronisation, counted
@@ -37,6 +39,14 @@ _launches_lock = threading.Lock()
 def reset_launches() -> None:
     with _launches_lock:
         launches["leaf_distances"] = 0
+
+
+def add_launch() -> None:
+    """Count one launch of the kernel: a call of ``leaf_distances`` that ran it,
+    or a replay of a CUDA graph that holds it (a capture runs nothing and
+    counts nothing)."""
+    with _launches_lock:
+        launches["leaf_distances"] += 1
 
 
 def leaf_work(leaf_c: torch.Tensor, lvalid: torch.Tensor, n_rows: torch.Tensor):
@@ -141,7 +151,7 @@ def leaf_distances(q, q_sq, emb, sq, n_rows, leaf_c, lvalid, metric: str) -> tor
             b, L, cap, D, m, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "leaf_distances")
-    with _launches_lock:
-        launches["leaf_distances"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        add_launch()
     return out
 

@@ -7,9 +7,11 @@ sort), tensors on a CUDA device launch the hand-written kernel
 (``csrc/leaf_merge.cu``: each query's best C selected from only the real
 rows of its valid slots, read in place) or raise; there is no switch that
 sends CUDA tensors to the plain version.  ``launches`` counts the calls
-that launched the kernel (a plain integer, bumped only there);
-``reset_launches()`` zeroes it.  Every such call is one launch and no
-other device work: the kernel sums the slots' rows itself.
+that launched the kernel (a plain integer, bumped there, not while a CUDA
+graph is being captured, and by ``add_launch()`` for each replay of a
+graph that holds it); ``reset_launches()`` zeroes it.  Every such call is
+one launch and no other device work: the kernel sums the slots' rows
+itself.
 """
 from __future__ import annotations
 
@@ -35,6 +37,14 @@ _launches_lock = threading.Lock()
 def reset_launches() -> None:
     with _launches_lock:
         launches["leaf_merge"] = 0
+
+
+def add_launch() -> None:
+    """Count one launch of the kernel: a call of ``leaf_merge`` that ran it,
+    or a replay of a CUDA graph that holds it (a capture runs nothing and
+    counts nothing)."""
+    with _launches_lock:
+        launches["leaf_merge"] += 1
 
 
 def sort_keys(C: int) -> int:
@@ -107,6 +117,6 @@ def leaf_merge(buf_d, buf_i, d, leaf_ids, n_rows, leaf_c, lvalid):
             B, C, b, cap, leaf_ids.shape[0], S, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "leaf_merge")
-    with _launches_lock:
-        launches["leaf_merge"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        add_launch()
     return out_d, out_i

@@ -4,6 +4,8 @@ No JAX here, so the file runs where the card is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+import sys
 import threading
 
 import numpy as np
@@ -227,6 +229,234 @@ def test_packed_search_on_the_card_is_the_cpu_searchers_and_launches_once_a_chun
         for x, y in [(a, c)] + list(zip(nexts, [c.query.next(50) for _ in range(2)])):
             assert np.array_equal(x.ids, y.ids), metric
             np.testing.assert_allclose(x.dists, y.dists, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- packed search's CUDA graphs
+@pytest.fixture(scope="module")
+def graph_index(tmp_path_factory):
+    """metric -> the packed index of one collection (3000 x 48, leaves of
+    up to 40 rows), built on the CPU; and 40 queries."""
+    from repro_torch.core import ECPBuildConfig, build_index, load_packed
+
+    rng = np.random.default_rng(12)
+    data = rng.standard_normal((3000, 48)).astype(np.float32)
+    Q = rng.standard_normal((40, 48)).astype(np.float32)
+    tmp = tmp_path_factory.mktemp("graphs")
+    out = {}
+    for metric in ("l2", "ip", "cosine"):
+        build_index(data, str(tmp / metric), ECPBuildConfig(levels=2, metric=metric, cluster_cap=40), device="cpu")
+        out[metric] = load_packed(str(tmp / metric))
+    return out, Q
+
+
+def _page(p):
+    """(ids [rows, k], dists [rows, k], leaves opened a row) of a page."""
+    stats = p.stats if isinstance(p.stats, list) else [p.stats]
+    return np.atleast_2d(p.ids), np.atleast_2d(p.dists), [s.leaves_opened for s in stats]
+
+
+def _pages(rs, n_next, k):
+    """``_page`` of a search and of its ``n_next`` pages."""
+    return [_page(p) for p in [rs] + [rs.query.next(k) for _ in range(n_next)]]
+
+
+def _same(a, b):
+    assert len(a) == len(b)
+    for (ia, da, la), (ib, db, lb) in zip(a, b):
+        assert np.array_equal(ia, ib) and np.array_equal(da, db) and la == lb
+
+
+def _traced(fn):
+    from repro_torch import tracing
+
+    tracing.reset()
+    with tracing.on():
+        out = fn()
+    snap = tracing.snapshot()
+    tracing.reset()
+    return out, snap
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("b", [2, 1])
+def test_a_replayed_search_is_the_first_eager_one_bit_for_bit(card, graph_index, metric, b):
+    """A shape runs eagerly at its first search, is captured at its second
+    and replayed from then on: each search and two ``next`` are the eager
+    ones bit for bit, and the CPU searcher's ids.  At b = 1 a page takes
+    several chunks, so ``_advance`` replays the chunk graphs on the state
+    it copies in."""
+    from repro_torch.core import BatchedSearcher
+
+    packed, Q = graph_index
+    s = BatchedSearcher(packed[metric], device="cuda")
+    eager, snap0 = _traced(lambda: _pages(s.search(Q, 50, b=b), 2, 50))
+    assert not s._graphs and "ecpfs.packed.graph_replays" not in snap0["counters"]
+    for i in range(2):
+        replayed, snap = _traced(lambda: _pages(s.search(Q, 50, b=b), 2, 50))
+        _same(eager, replayed)
+        c = snap["counters"]
+        assert c.get("ecpfs.packed.graph_captures", 0) == (1 if i == 0 else 0)
+        chunks = snap["spans"]["ecpfs.packed.score"]["count"]
+        assert c["ecpfs.packed.graph_replays"] == chunks == snap0["spans"]["ecpfs.packed.score"]["count"]
+        if b == 1:
+            assert chunks >= 4, "the search and its pages scan several chunks"
+    assert len(s._graphs) == 1
+    cpu = _pages(BatchedSearcher(packed[metric], device="cpu").search(Q, 50, b=b), 2, 50)
+    for (ia, da, la), (ib, db, lb) in zip(eager, cpu):
+        assert np.array_equal(ia, ib) and la == lb, metric
+        np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-5)
+
+
+def test_interleaved_sessions_equal_the_same_calls_alone(card, graph_index):
+    """Search A, search B, next A, next B on one searcher's graphs: each
+    session's pages are those of its calls run alone, so a session keeps
+    its own state and a ``next`` that scans copies its own in."""
+    from repro_torch.core import BatchedSearcher
+
+    packed, Q = graph_index
+    s = BatchedSearcher(packed["cosine"], device="cuda")
+    qa, qb = Q[:20], Q[20:]
+    for _ in range(2):
+        s.search(qa, 50, b=1)  # eager, then captured
+    alone = [_pages(s.search(q, 50, b=1), 2, 50) for q in (qa, qb)]
+    a, b = s.search(qa, 50, b=1), s.search(qb, 50, b=1)
+    got = [[_page(a)], [_page(b)]]
+    for _ in range(2):
+        for r, g in zip((a, b), got):
+            g.append(_page(r.query.next(50)))
+    _same(alone[0], got[0])
+    _same(alone[1], got[1])
+    assert len(s._graphs) == 1
+
+
+def test_threads_sharing_one_searchers_graphs_match_the_calls_alone(card, graph_index):
+    """More threads than cores search and page through one searcher's
+    graphs at once, on the default stream they share, the interpreter
+    switching often: every page is that of the same calls run alone."""
+    from repro_torch.core import BatchedSearcher
+
+    packed, Q = graph_index
+    s = BatchedSearcher(packed["l2"], device="cuda")
+    n = (os.cpu_count() or 4) + 2
+    parts = [Q[(4 * t) % 40:(4 * t) % 40 + 4] for t in range(n)]
+    for _ in range(2):
+        s.search(parts[0], 50, b=1)
+    alone = [_pages(s.search(q, 50, b=1), 2, 50) for q in parts]
+    torch.cuda.synchronize()
+    got, errors = {}, []
+
+    def worker(t):
+        try:
+            got[t] = [_pages(s.search(parts[t], 50, b=1), 2, 50) for _ in range(5)]
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(n)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for t in range(n):
+        for pages in got[t]:
+            _same(alone[t], pages)
+    assert len(s._graphs) == 1
+
+
+def test_each_shape_captures_once_and_launches_equal_the_spans(card, graph_index):
+    """A second shape captures once, at its second search in a row; past
+    ``GRAPH_SHAPES`` shapes a search stays eager.  Each kernel's launches
+    equal the ``score`` and ``merge`` spans, replayed or not, and the
+    replays equal the chunks that replayed."""
+    from repro_torch.core import BatchedSearcher, batched
+
+    packed, Q = graph_index
+    s = BatchedSearcher(packed["ip"], device="cuda")
+    shapes = [(Q[:n], b) for n, b in ((1, 2), (40, 1), (17, 1), (40, 3), (5, 1))]
+    assert len(shapes) > batched.GRAPH_SHAPES
+    eager = None
+    for i, (q, b) in enumerate(shapes):
+        for n in range(3):
+            ld.reset_launches()
+            lm.reset_launches()
+            pages, snap = _traced(lambda: _pages(s.search(q, 30, b=b), 1, 30))
+            eager = pages if i == n == 0 else eager
+            chunks, merges = snap["spans"]["ecpfs.packed.score"]["count"], snap["spans"]["ecpfs.packed.merge"]["count"]
+            c = snap["counters"]
+            assert ld.launches["leaf_distances"] == chunks and lm.launches["leaf_merge"] == merges == chunks
+            kept = i < batched.GRAPH_SHAPES
+            assert c.get("ecpfs.packed.graph_captures", 0) == (1 if kept and n == 1 else 0), (i, n)
+            assert c.get("ecpfs.packed.graph_replays", 0) == (chunks if kept and n > 0 else 0), (i, n)
+        assert len(s._graphs) == min(i + 1, batched.GRAPH_SHAPES)
+    # a single query ([D]) is the shape B = 1, captured above as Q[:1]: it
+    # replays, and its pages are the first, eager search's
+    replays = _traced(lambda: _pages(s.search(Q[0], 30, b=2), 1, 30))[1]["counters"]["ecpfs.packed.graph_replays"]
+    assert replays > 0
+    _same(_pages(s.search(Q[0], 30, b=2), 1, 30), eager)
+
+
+def test_shapes_that_alternate_stay_eager(card, graph_index):
+    """A shape is captured only when it follows a search of its own shape:
+    two shapes searched in turn capture nothing, and a run of one captures
+    it at its second search."""
+    from repro_torch.core import BatchedSearcher
+
+    packed, Q = graph_index
+    s = BatchedSearcher(packed["l2"], device="cuda")
+    for _ in range(3):
+        s.search(Q[:8], 20, b=2)
+        s.search(Q[:9], 20, b=2)
+    assert not s._graphs
+    s.search(Q[:9], 20, b=2)
+    assert list(s._graphs) == [(9, 2, 8, 256)]
+
+
+def _kernel_records(fn, names):
+    """{name: kernel records whose name holds it} of one call of ``fn``
+    under torch.profiler with CUDA activity, the call 50 ms inside the
+    trace at both ends."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    ks = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {n: sum(n in k for k in ks) for n in names}
+
+
+def test_the_profiler_sees_each_replayed_chunk_run_each_kernel_once(card, graph_index):
+    """Independent of the counters: the profiler's kernel records of a
+    replayed search and two pages hold each packed kernel once a chunk,
+    as many as the eager search's.  A dropped record can only hide a
+    launch: no trace may show more, and one of eight must show them all."""
+    from repro_torch.core import BatchedSearcher
+
+    packed, Q = graph_index
+    s = BatchedSearcher(packed["cosine"], device="cuda")
+    names = ("leaf_distances_kernel", "leaf_merge_kernel")
+    _, snap = _traced(lambda: _pages(s.search(Q, 50, b=1), 2, 50))  # eager
+    chunks = snap["spans"]["ecpfs.packed.score"]["count"]
+    assert chunks >= 4
+    s.search(Q, 50, b=1)  # captured
+    seen = []
+    for _ in range(8):
+        got = _kernel_records(lambda: _pages(s.search(Q, 50, b=1), 2, 50), names)
+        seen.append(got)
+        assert all(v <= chunks for v in got.values()), (chunks, seen)
+        if all(v == chunks for v in got.values()):
+            break
+    assert all(v == chunks for v in seen[-1].values()), (chunks, seen)
+    assert len(s._graphs) == 1
 
 
 # ------------------------------------------------------- packed mode's merge

@@ -86,6 +86,29 @@ def test_batched_search_and_next_match_the_reference(built, bi):
     _close(r1.query.next(K), o1.query.next(K))
 
 
+def test_a_cpu_searcher_captures_no_graphs_and_replays_nothing(built):
+    """On the CPU every search of a shape runs eagerly, the third as the
+    first: no graph is captured, no replay or capture is counted, and each
+    search and its ``next`` give the reference's results."""
+    from repro_torch import tracing
+
+    _, _, path, Q = built
+    ref = RefBatched(ref_load_packed(ref_open_store(path)))
+    ours = BatchedSearcher(load_packed(path), device="cpu")
+    tracing.reset()
+    try:
+        with tracing.on():
+            for _ in range(3):
+                rr, rs = ref.search(Q, K, b=2), ours.search(Q, K, b=2)
+                _close(rr, rs)
+                _close(rr.query.next(K), rs.query.next(K))
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.reset()
+    assert ours._graphs == {} and ours._last is None
+    assert "ecpfs.packed.graph_replays" not in counters and "ecpfs.packed.graph_captures" not in counters
+
+
 def test_scan_in_leaf_blocks_is_the_same_function(built, monkeypatch):
     """A scan budget of a few leaves (many blocks a chunk) and the default
     (one block) give the same results."""
